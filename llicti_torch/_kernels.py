@@ -1,0 +1,102 @@
+"""Build and load the package's CUDA kernels.
+
+Every ``csrc/*.cu`` file compiles with ``nvcc`` into one shared library
+with a plain C interface under ``_build/``, loaded with ctypes.  The build
+runs at first use (never at import: the CPU tests import every module),
+and again whenever a source is newer than the library.  Each C entry
+point launches on the stream it is given and returns
+``cudaGetLastError()``; :func:`check` turns a non-zero code into an
+exception.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+_HERE = Path(__file__).resolve().parent
+SRC_DIR = _HERE / "csrc"
+BUILD_DIR = _HERE / "_build"
+LIB_PATH = BUILD_DIR / "libllicti_kernels.so"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC"]
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_SIGNATURES = {
+    # pts, pmap, y, cum, start, freq, n, P, CO, YC, M, std0, mean0, w0,
+    # n_upd, upd_coef0, upd_ych0, upd_coef1, upd_ych1, sym_ch, minv, stream
+    "llicti_cdf_pmap": [_P, _P, _P, _P, _P, _P] + [_I] * 15 + [_P],
+    # cum, words, n_words, states, offset, syms, n, P, N, stream
+    "llicti_rans_decode": [_P, _P, _L, _P, _P, _P, _I, _I, _I, _P],
+    # starts, freqs, states, cursor, buf, cap, n, N, stream
+    "llicti_rans_encode": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+}
+
+
+def _nvcc() -> str:
+    cands = [os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                          "bin", "nvcc"), shutil.which("nvcc")]
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels "
+                       "cannot be built")
+
+
+def _sources():
+    return sorted(SRC_DIR.glob("*.cu")) + sorted(SRC_DIR.glob("*.cuh"))
+
+
+def _build() -> None:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = LIB_PATH.with_name(f"{LIB_PATH.name}.{os.getpid()}.tmp")
+    cmd = ([_nvcc()] + NVCC_FLAGS + ["-o", str(tmp)]
+           + [str(p) for p in sorted(SRC_DIR.glob("*.cu"))])
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    os.replace(tmp, LIB_PATH)
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built first if missing or stale."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    with _lock:
+        if _lib is None:
+            newest = max(p.stat().st_mtime for p in _sources())
+            if not LIB_PATH.exists() or LIB_PATH.stat().st_mtime < newest:
+                _build()
+            handle = ctypes.CDLL(str(LIB_PATH))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            handle.llicti_error_string.argtypes = [ctypes.c_int]
+            handle.llicti_error_string.restype = ctypes.c_char_p
+            _lib = handle
+    return _lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a kernel entry point reported a CUDA error."""
+    if err != 0:
+        msg = lib().llicti_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
+
+
+def stream_ptr(device) -> int:
+    """Raw handle of PyTorch's current stream on ``device``."""
+    return torch.cuda.current_stream(device).cuda_stream

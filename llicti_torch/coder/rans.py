@@ -1,0 +1,209 @@
+"""Kernels 2 and 3: N-lane interleaved rANS decode and encode of one slice.
+
+Port of ``llicti_tpu/coder/rans_device.py:41-42,142-197,231-294,316-350``.
+Coder: uint32 lane states in [2^16, 2^32), 16-bit probabilities, N lanes
+sharing one stream of 16-bit words.  Symbol i of a slice belongs to step
+i // N and lane i % N; the decoder walks steps forward and refills lanes
+in order 0..N-1, the encoder walks steps backward and emits in lane order
+N-1..0.  Slices chain through the same lane states and stream, so an
+image carries one N*4-byte state flush.
+
+:func:`rans_decode` and :func:`rans_encode` launch ``csrc/rans.cu`` on
+CUDA tensors and run the plain versions on CPU tensors.  The plain
+versions loop over steps in Python with int64 tensors masked to 32 bits
+(torch's uint32 has too few ops).  Both update the carried state tensors
+in place: ``states`` int64 ``[N]`` holding uint32 values, ``offset`` /
+``cursor`` int32 ``[1]``.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from .. import _kernels
+
+RANS_L = 1 << 16  # lower bound of the state interval
+_MASK32 = 0xFFFFFFFF
+
+
+def _check_carry(states, pos, name):
+    if states.dtype != torch.int64 or states.dim() != 1:
+        raise ValueError("states must be int64 [N]")
+    if not 1 <= states.shape[0] <= 1024:
+        raise ValueError(f"N={states.shape[0]} lanes: one block holds 1..1024")
+    if pos.dtype != torch.int32 or pos.shape != (1,):
+        raise ValueError(f"{name} must be int32 [1]")
+
+
+def _check_tensors(device, **tensors):
+    for name, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != device:
+            raise ValueError(f"{name} on {t.device}, expected {device}")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {device}")
+
+
+# ---- decode ----------------------------------------------------------------
+
+def rans_decode_plain(cum, words, states, offset) -> torch.Tensor:
+    """Plain PyTorch version of :func:`rans_decode`."""
+    n, P = cum.shape
+    N = states.shape[0]
+    W = words.shape[0]
+    x = states.clone()
+    off = int(offset[0])
+    words64 = words.to(torch.int64)
+    syms = torch.empty((n,), dtype=torch.int32, device=cum.device)
+    for i0 in range(0, n, N):
+        m = min(n, i0 + N) - i0
+        xv = x[:m]
+        block = cum[i0:i0 + m].to(torch.int64)
+        slot = xv & 0xFFFF
+        # s = (entries <= slot) - 1, the masked reductions of the JAX scan
+        s = torch.searchsorted(block, slot[:, None], right=True)[:, 0] - 1
+        start = torch.where(s >= 0, block.gather(1, s.clamp(min=0)[:, None])
+                            [:, 0], 0)
+        nxt = torch.where(s + 1 < P, block.gather(
+            1, (s + 1).clamp(max=P - 1)[:, None])[:, 0], RANS_L)
+        xn = ((nxt - start) * (xv >> 16) + slot - start) & _MASK32
+        need = xn < RANS_L
+        n64 = need.to(torch.int64)
+        idx = off + torch.cumsum(n64, 0) - n64
+        w = torch.zeros_like(xn)
+        ok = need & (idx < W)
+        w[ok] = words64[idx[ok]]
+        x[:m] = torch.where(need, ((xn << 16) | w) & _MASK32, xn)
+        syms[i0:i0 + m] = s.to(torch.int32)
+        off += int(n64.sum())
+    states.copy_(x)
+    offset.fill_(off)
+    return syms
+
+
+def rans_decode(cum: torch.Tensor, words: torch.Tensor, states: torch.Tensor,
+                offset: torch.Tensor) -> torch.Tensor:
+    """Decode one slice of ``n`` symbols.
+
+    cum ``[n, P]`` int32 tables (rows strictly increasing, last entry
+    2**16); words ``[W]`` int32 holding the stream's 16-bit words; states
+    int64 ``[N]`` and offset int32 ``[1]`` (the next word to read) are
+    read and updated in place.  Returns the symbols, int32 ``[n]``.
+    """
+    if cum.dtype != torch.int32 or cum.dim() != 2 or cum.shape[1] < 2:
+        raise ValueError("cum must be int32 [n, P >= 2]")
+    if words.dtype != torch.int32 or words.dim() != 1:
+        raise ValueError("words must be int32 [W]")
+    _check_carry(states, offset, "offset")
+    _check_tensors(cum.device, cum=cum, words=words, states=states,
+                   offset=offset)
+    if cum.device.type == "cpu":
+        return rans_decode_plain(cum, words, states, offset)
+    n, P = cum.shape
+    syms = torch.empty((n,), dtype=torch.int32, device=cum.device)
+    err = _kernels.lib().llicti_rans_decode(
+        cum.data_ptr(), words.data_ptr(), words.shape[0], states.data_ptr(),
+        offset.data_ptr(), syms.data_ptr(), n, P, states.shape[0],
+        _kernels.stream_ptr(cum.device))
+    _kernels.check(err, "llicti_rans_decode")
+    if n > 0:
+        rans_decode.launches += 1
+    return syms
+
+
+rans_decode.launches = 0
+
+
+# ---- encode ----------------------------------------------------------------
+
+def rans_encode_plain(starts, freqs, states, cursor, buf) -> None:
+    """Plain PyTorch version of :func:`rans_encode`."""
+    n = starts.shape[0]
+    N = states.shape[0]
+    cap = buf.shape[0]
+    x = states.clone()
+    cur = int(cursor[0])
+    T = -(-n // N)
+    for t in range(T - 1, -1, -1):
+        i0 = t * N
+        m = min(n, i0 + N) - i0
+        start = torch.zeros_like(x)
+        freq = torch.zeros_like(x)
+        start[:m] = starts[i0:i0 + m]
+        freq[:m] = freqs[i0:i0 + m]
+        val = freq > 0
+        fs = freq.clamp(min=1)
+        emit = val & (x >= ((fs << 16) & _MASK32))
+        word = x & 0xFFFF
+        xs = torch.where(emit, x >> 16, x)
+        x = torch.where(val, (((xs // fs) << 16) + xs % fs + start) & _MASK32,
+                        xs)
+        # emission order: lanes N-1..0; exclusive prefix in that order
+        e = emit.flip(0).to(torch.int64)
+        pos = (cur + torch.cumsum(e, 0) - e).flip(0)
+        keep = emit & (pos < cap)
+        buf[pos[keep]] = word[keep].to(torch.int32)
+        cur += int(e.sum())
+    states.copy_(x)
+    cursor.fill_(cur)
+
+
+def rans_encode(starts: torch.Tensor, freqs: torch.Tensor,
+                states: torch.Tensor, cursor: torch.Tensor,
+                buf: torch.Tensor) -> None:
+    """Encode one slice in reverse step order.
+
+    starts/freqs int32 ``[n]`` per symbol (cum[s], cum[s+1] - cum[s]);
+    freq 0 marks a masked no-op.  states int64 ``[N]``, cursor int32
+    ``[1]`` and buf int32 ``[cap]`` are updated in place: the emitted
+    words land at ``buf[cursor:]`` in encode order (the reverse of the
+    stream order), and the cursor counts every word, so a cursor past
+    ``cap`` means the buffer was too small.
+    """
+    for name, t in (("starts", starts), ("freqs", freqs), ("buf", buf)):
+        if t.dtype != torch.int32 or t.dim() != 1:
+            raise ValueError(f"{name} must be int32 [k]")
+    if starts.shape != freqs.shape:
+        raise ValueError("starts and freqs differ in shape")
+    _check_carry(states, cursor, "cursor")
+    _check_tensors(starts.device, starts=starts, freqs=freqs, states=states,
+                   cursor=cursor, buf=buf)
+    if starts.device.type == "cpu":
+        rans_encode_plain(starts, freqs, states, cursor, buf)
+        return
+    n = starts.shape[0]
+    err = _kernels.lib().llicti_rans_encode(
+        starts.data_ptr(), freqs.data_ptr(), states.data_ptr(),
+        cursor.data_ptr(), buf.data_ptr(), buf.shape[0], n, states.shape[0],
+        _kernels.stream_ptr(starts.device))
+    _kernels.check(err, "llicti_rans_encode")
+    if n > 0:
+        rans_encode.launches += 1
+
+
+rans_encode.launches = 0
+
+
+# ---- stream assembly -------------------------------------------------------
+
+def pack_stream_packed(packed_rev: np.ndarray,
+                       final_states: np.ndarray) -> bytes:
+    """[N states as uint32 LE][words as uint16 LE, decode order]; the words
+    come in encode order, so one flip gives the decoder's order."""
+    return (np.asarray(final_states, np.uint32).tobytes()
+            + np.ascontiguousarray(
+                np.asarray(packed_rev, np.uint16)[::-1]).tobytes())
+
+
+def unpack_stream(data: bytes,
+                  num_lanes: int) -> Tuple[np.ndarray, np.ndarray]:
+    """-> (states uint32 [N], words int32 [W])."""
+    if len(data) < 4 * num_lanes or (len(data) - 4 * num_lanes) % 2:
+        raise ValueError(f"rANS blob of {len(data)} bytes does not fit "
+                         f"{num_lanes} lanes")
+    states = np.frombuffer(data[: 4 * num_lanes], np.uint32).copy()
+    words = np.frombuffer(data[4 * num_lanes:], np.uint16).astype(np.int32)
+    return states, words

@@ -1,0 +1,91 @@
+"""The port runs without JAX: a subprocess that refuses every import of
+jax, flax and orbax imports llicti_torch and runs a CPU round trip, and no
+module of the port (nor chip_smoke.py) imports them or the JAX package's
+JAX-bound modules."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+BLOCKED = ("jax", "jaxlib", "flax", "orbax")
+# the only modules of the JAX package the port may use: both JAX-free
+ALLOWED_TPU = ("llicti_tpu.config", "llicti_tpu.data.dataset")
+
+_CHILD = r"""
+import sys
+
+BLOCKED = %r
+
+
+class Blocker:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+
+for mod in [m for m in sys.modules if m.split(".")[0] in BLOCKED]:
+    del sys.modules[mod]
+sys.meta_path.insert(0, Blocker())
+
+import numpy as np
+import torch
+from llicti_torch import Codec, ModelConfig
+from llicti_torch.models.llicti import LLICTIModel
+from llicti_torch.weights import flat_params
+
+cfg = ModelConfig(chs=(4, 4), evens=(4, 4), odds=(3, 3), dwtlevels=(0, 1),
+                  useprevlevNN=(False, True))
+torch.manual_seed(0)
+params = {}
+for m, bands in enumerate(LLICTIModel(cfg).models):
+    for b, net in enumerate(bands):
+        for name, mod in net.named_modules():
+            if isinstance(mod, torch.nn.Conv2d):
+                key = f"models_{m}_{b}/" + name.replace("trunk.", "trunk_")
+                params[key + "/Conv_0/kernel"] = (
+                    mod.weight.detach().numpy().transpose(2, 3, 1, 0))
+                params[key + "/Conv_0/bias"] = mod.bias.detach().numpy()
+codec = Codec(cfg, params, num_lanes=16)
+img = np.random.default_rng(0).integers(0, 256, (21, 18, 3), dtype=np.uint8)
+out = codec.decompress(codec.compress(img))
+assert np.array_equal(out[0], img)
+assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+print("OK")
+"""
+
+
+def test_port_runs_with_jax_blocked():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", _CHILD % (BLOCKED,)],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip().endswith("OK")
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+            if node.module == "llicti_tpu":
+                yield from (f"llicti_tpu.{a.name}" for a in node.names)
+
+
+def test_static_scan_finds_no_jax_import():
+    files = sorted((ROOT / "llicti_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    for path in files:
+        for mod in _imports(path):
+            top = mod.split(".")[0]
+            assert top not in BLOCKED, f"{path}: imports {mod}"
+            if top == "llicti_tpu":
+                assert mod in ALLOWED_TPU, f"{path}: imports {mod}"
+    assert not any(mod.startswith("llicti_tpu")
+                   for mod in _imports(ROOT / "chip_smoke.py"))

@@ -1,0 +1,198 @@
+"""The port's rANS coder (plain PyTorch versions of Kernels 2 and 3)
+against the JAX package: its numpy golden model and its jitted lane scans.
+Integer-only, so everything must be exact: symbols, states, offsets and
+stream bytes."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from llicti_tpu.coder import rans_device as jr
+from llicti_torch.coder import rans as tr
+
+
+def make_cum(rng, n, Lp, floor0=False):
+    """Random [n, Lp] int32 tables obeying the coder contract; with
+    ``floor0`` the first entry is > 0, as the CDF kernel can leave it."""
+    alphas = np.full(Lp - 1, 0.05)
+    alphas[rng.integers(0, Lp - 1, size=2)] = 8.0
+    p = rng.dirichlet(alphas, size=n)
+    cdf = np.concatenate([np.zeros((n, 1)), np.cumsum(p, -1)], -1)
+    if floor0:
+        cdf[:, 0] = rng.uniform(0.0, 0.01, n)
+    cdf = np.clip(cdf, 0, 1).astype(np.float32)
+    return np.array(jr.cdf_float_to_cum_int32(jnp.asarray(cdf)))
+
+
+def sample_syms(rng, cum):
+    """Symbols in [0, Lp-2] drawn through the table."""
+    u = rng.integers(int(cum[:, 0].max()), 2 ** 16, size=cum.shape[0])
+    s = np.sum(cum[:, :-1] <= u[:, None], axis=-1) - 1
+    return np.clip(s, 0, cum.shape[1] - 2).astype(np.int32)
+
+
+def start_freq(cum, syms):
+    i = np.arange(len(syms))
+    starts = cum[i, syms]
+    return starts.astype(np.int32), (cum[i, syms + 1] - starts).astype(
+        np.int32)
+
+
+def port_encode(slices, N):
+    """Encode slices (decode order) with the port; -> (blob, per-slice
+    cursors in encode order)."""
+    states = torch.full((N,), tr.RANS_L, dtype=torch.int64)
+    cursor = torch.zeros((1,), dtype=torch.int32)
+    cap = sum(len(s) for _, s in slices) + N
+    buf = torch.zeros((cap,), dtype=torch.int32)
+    cursors = []
+    for cum, syms in reversed(slices):
+        st, fr = start_freq(cum, syms)
+        tr.rans_encode(torch.from_numpy(st), torch.from_numpy(fr), states,
+                       cursor, buf)
+        cursors.append(int(cursor[0]))
+    total = int(cursor[0])
+    return tr.pack_stream_packed(buf[:total].numpy(), states.numpy()), cursors
+
+
+def port_decode(blob, slices, N):
+    st, words = tr.unpack_stream(blob, N)
+    states = torch.from_numpy(st.astype(np.int64))
+    offset = torch.zeros((1,), dtype=torch.int32)
+    words_t = torch.from_numpy(words)
+    out = [tr.rans_decode(torch.from_numpy(cum), words_t, states,
+                          offset).numpy() for cum, _ in slices]
+    return out, states, int(offset[0]), len(words)
+
+
+@pytest.mark.parametrize("N,n,Lp", [(8, 1000, 257), (16, 230, 64),
+                                    (4, 17, 513), (32, 999, 129)])
+def test_single_slice_matches_golden_model(N, n, Lp):
+    rng = np.random.default_rng(N + n)
+    cum = make_cum(rng, n, Lp)
+    syms = sample_syms(rng, cum)
+    ref = jr.RansRefEncoder(N)
+    ref.encode_slice(*start_freq(cum, syms))
+    ref_words, ref_states = ref.finish()
+    blob, _ = port_encode([(cum, syms)], N)
+    assert blob == jr.pack_stream_packed(ref_words[::-1], ref_states)
+    out, states, off, W = port_decode(blob, [(cum, syms)], N)
+    np.testing.assert_array_equal(out[0], syms)
+    ref_dec = jr.RansRefDecoder(ref_words, ref_states)
+    np.testing.assert_array_equal(ref_dec.decode_slice(cum), syms)
+    np.testing.assert_array_equal(states.numpy(),
+                                  ref_dec.states.astype(np.int64))
+    assert off == W == ref_dec.pos
+
+
+@jax.jit
+def _jax_chain(st_fr, states, buf):
+    """The JAX package's encode chain: rans_encode_body_batch per slice."""
+    cursor = jnp.zeros((1,), jnp.int32)
+    for st, fr in st_fr:
+        buf, cursor, states = jr.rans_encode_body_batch(
+            st[None], fr[None], states, cursor, buf, states.shape[1])
+    return buf, cursor, states
+
+
+@pytest.mark.parametrize("N,floor0", [(16, False), (32, True)])
+def test_chain_blob_matches_jax(N, floor0):
+    """Blob byte-identical to JAX rans_encode_body_batch + pack_stream_packed
+    over a chain of slices whose sizes are not multiples of N; the port
+    decodes the JAX blob to the same symbols, states and offset as JAX."""
+    rng = np.random.default_rng(N)
+    slices = []
+    for n, Lp in [(513, 257), (222, 513), (64, 33), (1000, 257)]:
+        cum = make_cum(rng, n, Lp, floor0)
+        slices.append((cum, sample_syms(rng, cum)))
+    blob, cursors = port_encode(slices, N)
+
+    st_fr = tuple((jnp.asarray(a), jnp.asarray(b)) for a, b in
+                  (start_freq(c, s) for c, s in reversed(slices)))
+    cap = sum(len(s) for _, s in slices) + N
+    buf, cursor, states = _jax_chain(
+        st_fr, jnp.full((1, N), jr.RANS_L, jnp.uint32),
+        jnp.zeros((1, cap), jnp.int32))
+    total = int(cursor[0])
+    assert total == cursors[-1]
+    jblob = jr.pack_stream_packed(np.asarray(buf)[0][:total],
+                                  np.asarray(states)[0])
+    assert blob == jblob
+
+    out, st, off, W = port_decode(jblob, slices, N)
+    jst, jwords = jr.unpack_stream(jblob, N)
+    jst = jnp.asarray(jst, jnp.uint32)[None]
+    joff = jnp.zeros((1,), jnp.int32)
+    for (cum, syms), got in zip(slices, out):
+        np.testing.assert_array_equal(got, syms)
+        jsyms, jst, joff = jr.rans_decode_body_batch(
+            jnp.asarray(cum)[None], jnp.asarray(jwords)[None], jst, joff, N,
+            len(syms))
+        np.testing.assert_array_equal(np.asarray(jsyms)[0], syms)
+    np.testing.assert_array_equal(st.numpy(), np.asarray(jst)[0])
+    assert off == int(joff[0]) == W
+
+
+def test_decode_masked_search_below_first_entry():
+    """A slot below cum[0] gives s = -1 with (start, freq) = (0, cum[0]),
+    as the JAX scan's masked reductions do; a stream that runs out of
+    words reads zeros instead of leaving the buffer."""
+    N = 4
+    cum = np.tile(np.array([[5000, 20000, 40000, 65536]], np.int32), (8, 1))
+    states = np.array([70000, 65536 + 100, 2 ** 31 + 3, 2 ** 32 - 1],
+                      np.uint32)
+    words = np.array([7, 9], np.int32)
+    st_t = torch.from_numpy(states.astype(np.int64))
+    off_t = torch.zeros((1,), dtype=torch.int32)
+    got = tr.rans_decode(torch.from_numpy(cum), torch.from_numpy(words),
+                         st_t, off_t)
+    jsyms, jst, joff = jr.rans_decode_body_batch(
+        jnp.asarray(cum)[None], jnp.asarray(words)[None],
+        jnp.asarray(states)[None], jnp.zeros((1,), jnp.int32), N, 8)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jsyms)[0])
+    assert (got.numpy() == -1).any()
+    np.testing.assert_array_equal(st_t.numpy(), np.asarray(jst)[0])
+    assert int(off_t[0]) == int(joff[0])
+
+
+def test_masked_symbols_cost_nothing():
+    """freq 0 marks a no-op: padding a slice with such entries leaves the
+    stream unchanged."""
+    rng = np.random.default_rng(5)
+    N = 8
+    cum = make_cum(rng, 77, 65)
+    st, fr = start_freq(cum, sample_syms(rng, cum))
+
+    def enc(st, fr):
+        states = torch.full((N,), tr.RANS_L, dtype=torch.int64)
+        cursor = torch.zeros((1,), dtype=torch.int32)
+        buf = torch.zeros((200,), dtype=torch.int32)
+        tr.rans_encode(torch.from_numpy(st), torch.from_numpy(fr), states,
+                       cursor, buf)
+        return tr.pack_stream_packed(buf[:int(cursor[0])].numpy(),
+                                     states.numpy())
+
+    pad = np.zeros(51, np.int32)
+    assert enc(st, fr) == enc(np.concatenate([st, pad + 3]),
+                              np.concatenate([fr, pad]))
+
+
+def test_wrappers_reject_bad_input():
+    cum = torch.zeros((4, 9), dtype=torch.int32)
+    words = torch.zeros((3,), dtype=torch.int32)
+    states = torch.full((4,), tr.RANS_L, dtype=torch.int64)
+    off = torch.zeros((1,), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        tr.rans_decode(cum.long(), words, states, off)
+    with pytest.raises(ValueError):
+        tr.rans_decode(cum, words, states.int(), off)
+    with pytest.raises(ValueError):
+        tr.rans_decode(cum, words, torch.zeros((1025,), dtype=torch.int64),
+                       off)
+    with pytest.raises(ValueError):
+        tr.rans_encode(words, words[:2], states, off, words)
+    with pytest.raises(ValueError):
+        tr.rans_encode(words, words, states, off.long(), words)
+    with pytest.raises(ValueError):
+        tr.unpack_stream(b"\0" * 7, 2)
