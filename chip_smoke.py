@@ -8,12 +8,23 @@ Phases, each of which raises on failure:
   2. build the CUDA kernels from llicti_torch/csrc and print the build time;
   3. hold each kernel against its plain PyTorch version on the card at the
      main path's shapes (the finest band of a 512x768 image, 1024 lanes),
-     and time both;
+     and time both: Kernel 1 in its normal and logistic branches, Kernel 4
+     (gmm_cdf_table_int32) on gmm_slice_params of the same parameter map,
+     the rANS decode and encode;
   4. check the CUDA model against the CPU one on a small crop;
   5. the main path: Codec.compress -> serialize -> deserialize ->
      decompress of synthetic_image(512, 768, seed=42) with the trained
      flagship weights, byte-exact, with every kernel's launch count > 0;
-  6. the same round trip on a 310x598 image (odd sizes, pad flags).
+  6. the same round trip on a 310x598 image (odd sizes, pad flags);
+  7. Kernel 4's path (it lies on no codec path, in this package or the JAX
+     one): tables of the finest band from gmm_slice_params, rANS-encoded
+     at the true symbols and decoded back;
+  8. the variants: one byte-exact round trip of the 512x768 image per
+     coded configuration at flagship widths and depth (clrjnt 2 / 1 / 0 /
+     0+seqmd x normal / logistic, GDN1, mwsa_joint, combine_layers1toL),
+     plus 310x598 for clrjnt 1 and 0+seqmd; the trained weights for
+     clrjnt 2 logistic, init_params(cfg, seed=0) for the rest (so only
+     losslessness and the kernels mean anything there, not the bits).
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -35,6 +46,27 @@ from llicti_torch.ops import cdf
 from llicti_torch.ops.color import rgb_int_to_ycocg_r_int
 from llicti_torch.ops.gmm import cdf_sampling_points
 from llicti_torch.ops.wavelet import lazy_dwt
+from llicti_torch.weights import init_params
+
+# (label, ModelConfig knobs, trained weights?, also 310x598?)
+VARIANTS = [
+    ("clrjnt2 normal", {}, False, False),
+    ("clrjnt2 logistic", {"distribution": "logistic"}, True, False),
+    ("clrjnt1 normal", {"clr_joint_mode": 1}, False, True),
+    ("clrjnt1 logistic", {"clr_joint_mode": 1, "distribution": "logistic"},
+     False, True),
+    ("clrjnt0 normal", {"clr_joint_mode": 0}, False, False),
+    ("clrjnt0 logistic", {"clr_joint_mode": 0, "distribution": "logistic"},
+     False, False),
+    ("clrjnt0+seqmd normal", {"clr_joint_mode": 0, "clrjnt0seqmd": True},
+     False, True),
+    ("clrjnt0+seqmd logistic", {"clr_joint_mode": 0, "clrjnt0seqmd": True,
+                                "distribution": "logistic"}, False, True),
+    ("clrjnt2 GDN1", {"activfun": "GDN1"}, False, False),
+    ("clrjnt2 mwsa_joint", {"mwsa_joint": True}, False, False),
+    ("clrjnt2 combine_layers1toL", {"combine_layers1toL": True}, False,
+     False),
+]
 
 
 def card_line() -> str:
@@ -87,20 +119,31 @@ def kernel_phase(codec, img):
     y2 = y0[0].reshape(h * w, -1).contiguous()
     results = {}
 
-    def cdf_case(clr, minv, maxv):
+    def compare_tables(label, cum, pcum):
+        d = (cum.long() - pcum.long()).abs()
+        mism = int((d > 0).sum())
+        check(int(d.max()) <= 1, f"{label}: kernel differs by > 1 step")
+        check(bool((cum[..., -1] == 65536).all()), "last entry != 2^16")
+        check(bool((cum[..., 1:] > cum[..., :-1]).all()),
+              "rows not increasing")
+        return int(d.max()), mism, d.numel()
+
+    def report(label, P, err, mism, size, ms, plain_ms):
+        print(f"{label} n={h * w} P={P}: max|d|={err} "
+              f"mismatches={mism}/{size} ({100.0 * mism / size:.5f}%), "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+
+    def cdf_case(clr, minv, maxv, logistic=False):
         M, s0, m0, w0, upd = cmod.pmap_cdf_spec(cfg, 0, clr)
         sch = cmod.sym_channel(cfg, 0, clr)
         pts = cdf_sampling_points(minv, maxv).to(dev)
-        args = (pts, pm, y2, M, s0, m0, w0, upd, sch, minv)
+        args = (pts, pm, y2, M, s0, m0, w0, upd, logistic, sch, minv)
         cum, st, fr = cdf.gmm_cdf_from_pmap(*args)
         pcum, _, _ = cdf.gmm_cdf_from_pmap_plain(*args)
         torch.cuda.synchronize()
         P = cum.shape[1]
-        d = (cum.long() - pcum.long()).abs()
-        mism = int((d > 0).sum())
-        check(int(d.max()) <= 1, "CDF kernel differs by > 1 step")
-        check(bool((cum[:, -1] == 65536).all()), "last entry != 2^16")
-        check(bool((cum[:, 1:] > cum[:, :-1]).all()), "rows not increasing")
+        label = f"kernel1{' logistic' if logistic else ''} clr={clr}"
+        err, mism, size = compare_tables(label, cum, pcum)
         sym = (torch.round(y2[:, sch] * 255.0).int() - minv).clamp(0, P - 2)
         lo = cum.gather(1, sym.long()[:, None])[:, 0]
         hi = cum.gather(1, sym.long()[:, None] + 1)[:, 0]
@@ -108,14 +151,33 @@ def kernel_phase(codec, img):
               "kernel (start, freq) != lookup into its own table")
         ms = cuda_ms(lambda: cdf.gmm_cdf_from_pmap(*args), 20)
         plain_ms = cuda_ms(lambda: cdf.gmm_cdf_from_pmap_plain(*args), 5)
-        print(f"kernel1 clr={clr} n={h * w} P={P}: max|d|={int(d.max())} "
-              f"mismatches={mism}/{d.numel()} "
-              f"({100.0 * mism / d.numel():.5f}%), kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms")
-        return cum, st, fr, int(d.max()), ms, plain_ms
+        report(label, P, err, mism, size, ms, plain_ms)
+        return cum, st, fr, err, ms, plain_ms
+
+    def table_case(clr, minv, maxv):
+        """Kernel 4 on gmm_slice_params of the same parameter map."""
+        params = [t.contiguous() for t in
+                  cmod.gmm_slice_params(cfg, pmap, y0, 0, clr)]
+        pts = cdf_sampling_points(minv, maxv).to(dev)
+        cum = cdf.gmm_cdf_table_int32(pts, *params)
+        pcum = cdf.gmm_cdf_table_int32_plain(pts, *params)
+        torch.cuda.synchronize()
+        err, mism, size = compare_tables(f"kernel4 clr={clr}", cum, pcum)
+        ms = cuda_ms(lambda: cdf.gmm_cdf_table_int32(pts, *params), 20)
+        plain_ms = cuda_ms(
+            lambda: cdf.gmm_cdf_table_int32_plain(pts, *params), 5)
+        report(f"kernel4 clr={clr}", cum.shape[-1], err, mism, size, ms,
+               plain_ms)
+        return err, ms, plain_ms
+
+    def summary(cases, widest):
+        """(max |d| over every case, mean ms and plain ms over the image's
+        three colour slices)"""
+        return (max([c[-3] for c in cases] + widest),
+                sum(c[-2] for c in cases) / 3, sum(c[-1] for c in cases) / 3)
 
     # Kernel 1 on the three slices of the band (the image's ranges), then
-    # at the widest tables: Y at P=257 and Co at P=513
+    # at the widest tables: Y at P=257 and Co at P=513; both branches
     sf, tables, k1 = [], [], []
     for clr in range(3):
         cum, st, fr, err, ms, plain_ms = cdf_case(clr, *ranges[clr])
@@ -123,9 +185,14 @@ def kernel_phase(codec, img):
         tables.append(cum)
         k1.append((err, ms, plain_ms))
     widest = [cdf_case(0, -127, 128)[3], cdf_case(1, -256, 255)[3]]
-    results["cdf"] = (max([e for e, _, _ in k1] + widest),
-                      sum(m for _, m, _ in k1) / 3,
-                      sum(p for _, _, p in k1) / 3)
+    results["cdf"] = summary(k1, widest)
+    k1l = [cdf_case(clr, *ranges[clr], logistic=True)[3:]
+           for clr in range(3)]
+    widest = [cdf_case(0, -127, 128, True)[3], cdf_case(1, -256, 255, True)[3]]
+    results["cdf_logistic"] = summary(k1l, widest)
+    k4 = [table_case(clr, *ranges[clr]) for clr in range(3)]
+    results["table"] = summary(k4, [table_case(0, -127, 128)[0],
+                                    table_case(1, -256, 255)[0]])
 
     # Kernel 3: encode the three slices (reverse order), kernel vs plain
     N = codec.N
@@ -260,6 +327,78 @@ def round_trip(codec, img, label: str):
           f"MiB")
 
 
+def table_path(codec, img):
+    """Kernel 4's path: the finest band's three tables from
+    gmm_slice_params (Kernel 4), rANS-encoded at the true symbols and
+    decoded back to them."""
+    cfg, dev, N = codec.cfg, codec.device, codec.N
+    minmax, _ = cmod.host_header(img[None], cfg.dwtlevels)
+    x = torch.from_numpy(img[None].copy()).to(dev)
+    y0 = lazy_dwt(codec._to_y(rgb_int_to_ycocg_r_int(x)), cfg.dwtlevels,
+                  pad=True)[0][0]
+    with torch.inference_mode():
+        pmap = codec.model.band_params(y0[..., :3].contiguous(), 0, 0)
+    tables, syms, sf = [], [], []
+    for clr in range(3):
+        minv, maxv = cmod.clr_range(clr, minmax)
+        pts = cdf_sampling_points(minv, maxv).to(dev)
+        params = [t.contiguous() for t in
+                  cmod.gmm_slice_params(cfg, pmap, y0, 0, clr)]
+        cum = cdf.gmm_cdf_table_int32(pts, *params).reshape(-1, len(pts))
+        sym = (torch.round(y0[..., cmod.sym_channel(cfg, 0, clr)] * 255.0)
+               .int() - minv).reshape(-1, 1).long()
+        lo = cum.gather(1, sym)[:, 0]
+        sf.append((lo, cum.gather(1, sym + 1)[:, 0] - lo))
+        tables.append(cum)
+        syms.append(sym[:, 0].int())
+    states = torch.full((N,), rans.RANS_L, dtype=torch.int64, device=dev)
+    cursor = torch.zeros((1,), dtype=torch.int32, device=dev)
+    buf = torch.zeros((3 * syms[0].numel() + N,), dtype=torch.int32,
+                      device=dev)
+    for st, fr in reversed(sf):
+        rans.rans_encode(st, fr, states, cursor, buf)
+    total = int(cursor[0])
+    blob = rans.pack_stream_packed(buf[:total].cpu().numpy(),
+                                   states.cpu().numpy())
+    states_np, words_np = rans.unpack_stream(blob, N)
+    states = torch.from_numpy(states_np.astype(np.int64)).to(dev)
+    offset = torch.zeros((1,), dtype=torch.int32, device=dev)
+    words = torch.from_numpy(words_np).to(dev)
+    for cum, sym in zip(tables, syms):
+        check(torch.equal(rans.rans_decode(cum, words, states, offset), sym),
+              "Kernel 4 tables: decoded symbols != encoded")
+    print(f"kernel4 path: 3 tables x {syms[0].numel()} pixels -> {total} "
+          f"words -> decoded symbols identical")
+
+
+def variants_phase(img, odd):
+    """One round trip per coded configuration; returns the logistic
+    branch's launches over the logistic configurations' counted runs."""
+    t0 = time.perf_counter()
+    trained = load_npz()
+    logistic_launches = 0
+    for label, kw, use_trained, also_odd in VARIANTS:
+        cfg = ModelConfig(**kw)
+        codec = Codec(cfg, trained if use_trained else init_params(cfg, 0),
+                      device="cuda", num_lanes=1024)
+        logistic = cfg.distribution == "logistic"
+        for im in (img, odd) if also_odd else (img,):
+            H, W = im.shape[:2]
+            codec.decompress(codec.compress(im))  # warm-up
+            k1 = cdf.gmm_cdf_from_pmap
+            k1.launches = k1.logistic_launches = 0
+            round_trip(codec, im, f"{label} {H}x{W}")
+            check(k1.launches > 0, f"{label}: Kernel 1 was not launched")
+            check(k1.logistic_launches == (k1.launches if logistic else 0),
+                  f"{label}: Kernel 1 ran the wrong branch")
+            logistic_launches += k1.logistic_launches
+        del codec
+        torch.cuda.empty_cache()
+    print(f"variants phase: {len(VARIANTS)} configurations in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return logistic_launches
+
+
 def main() -> None:
     print(card_line())
     if not torch.cuda.is_available():
@@ -291,11 +430,23 @@ def main() -> None:
     round_trip(codec, odd, "310x598")
     check(all(fn.launches > before[fn.__name__] for fn in counters),
           "310x598 round trip skipped a kernel")
+
+    cdf.gmm_cdf_table_int32.launches = 0
+    table_path(codec, img)
+    launches["gmm_cdf_table_int32"] = cdf.gmm_cdf_table_int32.launches
+    check(launches["gmm_cdf_table_int32"] > 0, "Kernel 4 was not launched")
+    launches["gmm_cdf_from_pmap_logistic"] = variants_phase(img, odd)
+    check(launches["gmm_cdf_from_pmap_logistic"] > 0,
+          "Kernel 1's logistic branch was not launched")
     check("jax" not in sys.modules, "jax was imported")
 
     rows = [
         ("gmm_cdf_from_pmap", "llicti_torch/csrc/cdf_pmap.cu",
          "llicti_tpu/ops/cdf_pallas.py:134", "cdf"),
+        ("gmm_cdf_from_pmap_logistic", "llicti_torch/csrc/cdf_pmap.cu",
+         "llicti_tpu/ops/cdf_pallas.py:134", "cdf_logistic"),
+        ("gmm_cdf_table_int32", "llicti_torch/csrc/cdf_pmap.cu",
+         "llicti_tpu/ops/cdf_pallas.py:192", "table"),
         ("rans_decode", "llicti_torch/csrc/rans.cu",
          "llicti_tpu/coder/rans_device.py:231", "decode"),
         ("rans_encode", "llicti_torch/csrc/rans.cu",

@@ -24,8 +24,8 @@ _HERE = Path(__file__).resolve().parent
 SRC_DIR = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
 LIB_PATH = BUILD_DIR / "libllicti_kernels.so"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+COMPILE_FLAGS = ARCH_FLAGS + ["-O3", "-std=c++17", "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -33,10 +33,14 @@ _lib: Optional[ctypes.CDLL] = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     # pts, pmap, y, cum, start, freq, n, P, CO, YC, M, std0, mean0, w0,
-    # n_upd, upd_coef0, upd_ych0, upd_coef1, upd_ych1, sym_ch, minv, stream
-    "llicti_cdf_pmap": [_P, _P, _P, _P, _P, _P] + [_I] * 15 + [_P],
+    # n_upd, upd_coef0, upd_ych0, upd_coef1, upd_ych1, sym_ch, minv,
+    # logistic, scale_bound, stream
+    "llicti_cdf_pmap": [_P, _P, _P, _P, _P, _P] + [_I] * 16 + [_F, _P],
+    # pts, stdev, means, weights, cum, n, P, X, stream
+    "llicti_cdf_table": [_P] * 5 + [_I] * 3 + [_P],
     # cum, words, n_words, states, offset, syms, n, P, N, stream
     "llicti_rans_decode": [_P, _P, _L, _P, _P, _P, _I, _I, _I, _P],
     # starts, freqs, states, cursor, buf, cap, n, N, stream
@@ -59,13 +63,30 @@ def _sources():
 
 
 def _build() -> None:
+    """One ``nvcc -c`` per source, all started together, then one link."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    objs, procs = [], []
+    for src in sorted(SRC_DIR.glob("*.cu")):
+        obj = BUILD_DIR / f"{src.stem}.{os.getpid()}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc] + COMPILE_FLAGS + ["-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    errors = [f"{p.args[-1]}: nvcc failed ({p.returncode}):\n{err}"
+              for p, (_, err) in ((p, p.communicate()) for p in procs)
+              if p.returncode != 0]
+    if errors:
+        raise RuntimeError("\n".join(errors))
     tmp = LIB_PATH.with_name(f"{LIB_PATH.name}.{os.getpid()}.tmp")
-    cmd = ([_nvcc()] + NVCC_FLAGS + ["-o", str(tmp)]
-           + [str(p) for p in sorted(SRC_DIR.glob("*.cu"))])
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    res = subprocess.run([nvcc] + ARCH_FLAGS + ["-shared", "-o", str(tmp)]
+                         + [str(o) for o in objs],
+                         capture_output=True, text=True)
+    for obj in objs:
+        obj.unlink()
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                           f"{res.stderr}")
     os.replace(tmp, LIB_PATH)
 
 

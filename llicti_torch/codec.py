@@ -1,12 +1,18 @@
 """Lossless codec: the single-image compress / decompress round trip.
 
-Port of the device-backend path of ``llicti_tpu/codec.py`` at K=1.  Per
-scale, coarse to fine, and per band, one shared function (:meth:`Codec._band`)
-runs the interpolator conv on the bands decoded so far and, for each of
-the three colours, builds the quantised CDF table (Kernel 1) and either
-collects the encoder's (start, freq) or rANS-decodes the band (Kernel 2)
-and writes it back.  The encoder then chains all 45 slices through the
-rANS encoder (Kernel 3) in reverse decode order into one stream.
+Port of the device-backend path of ``llicti_tpu/codec.py`` at K=1, for
+every configuration that codec codes: clr_joint_mode 0, 1 and 2 (with
+clrjnt0seqmd), normal and logistic mixtures, and any model knob
+(activation incl. GDN1, mwsa_joint, combine_layers1toL, useprevlevNN).
+Per scale, coarse to fine, and per band, one shared function
+(:meth:`Codec._band`) runs the interpolator conv on the bands decoded so
+far and, for each of the three colours, builds the quantised CDF table
+(Kernel 1) and either collects the encoder's (start, freq) or
+rANS-decodes the band (Kernel 2) and writes it back.  The encoder then
+chains all 45 slices through the rANS encoder (Kernel 3) in reverse
+decode order into one stream.  clr_joint_mode 1 codes a zero channel in
+front of (Y, Co, Cg); with clrjnt0seqmd the trunk runs once per colour
+on the band's layer-0 map plus the pixel's colours decoded so far.
 
 Bit-exactness: encoder and decoder must compute identical CDF tables.
 Both run the same convs on conditioning tensors of identical shape,
@@ -31,6 +37,7 @@ from llicti_tpu.config import ModelConfig
 
 from .coder.rans import (RANS_L, pack_stream_packed, rans_decode,
                          rans_encode, unpack_stream)
+from .models.interpolator import seq_colours
 from .ops.cdf import gmm_cdf_from_pmap
 from .ops.color import (rgb_int_to_ycocg_r_int, rgb_int_to_ycocg_r_int_np,
                         ycocg_r_int_to_rgb_int)
@@ -44,11 +51,52 @@ INV255 = np.float32(1.0 / 255.0)
 _SHIFT = (127, 0, 0)  # Y is coded around 127/255
 
 
+def clr_offset(cfg: ModelConfig) -> int:
+    """Channel of Y inside a band unit: clr_joint_mode 1 puts a zero
+    channel in front of (Y, Co, Cg)."""
+    return 1 if cfg.clr_joint_mode == 1 else 0
+
+
 def sym_channel(cfg: ModelConfig, b: int, clr: int) -> int:
     """Channel of colour ``clr`` of band ``b`` inside a y_lev tensor."""
-    c = cfg.cond_channels
-    clr_off = 1 if cfg.clr_joint_mode == 1 else 0
-    return c * (b + 1) + clr_off + clr
+    return cfg.cond_channels * (b + 1) + clr_offset(cfg) + clr
+
+
+def gmm_slice_params(cfg: ModelConfig, pmap, y_lev, b: int, clr: int):
+    """(stdevs, means, weights) ``[..., M_eff]`` of colour ``clr`` of band
+    ``b``, sliced out of the parameter map ``[..., CO]`` with the
+    cross-colour mean updates applied from ``y_lev`` ``[..., YC]`` (the
+    parameter layouts per clr_joint_mode; JAX ``codec.py:70-108``)."""
+    M = cfg.num_mixtures
+    if cfg.clr_joint_mode == 0:
+        return (pmap[..., 3 * clr * M:(3 * clr + 1) * M],
+                pmap[..., (3 * clr + 1) * M:(3 * clr + 2) * M],
+                pmap[..., (3 * clr + 2) * M:(3 * clr + 3) * M])
+    if cfg.clr_joint_mode == 1:
+        if clr == 0:  # Y uses 2M mixtures
+            return (pmap[..., 2 * M:4 * M], pmap[..., 4 * M:6 * M],
+                    pmap[..., 6 * M:8 * M])
+        i = clr - 1
+        stdevs = pmap[..., (8 + i) * M:(9 + i) * M]
+        means = pmap[..., (10 + i) * M:(11 + i) * M]
+        weights = pmap[..., (12 + i) * M:(13 + i) * M]
+        if clr == 2:  # mean_Cg += a * Co
+            ch = sym_channel(cfg, b, 1)
+            means = means + pmap[..., 14 * M:15 * M] * y_lev[..., ch:ch + 1]
+        return stdevs, means, weights
+    ch0 = sym_channel(cfg, b, 0)
+    ch1 = sym_channel(cfg, b, 1)
+    y0 = y_lev[..., ch0:ch0 + 1]
+    y1 = y_lev[..., ch1:ch1 + 1]
+    stdevs = pmap[..., clr * M:(clr + 1) * M]
+    means = pmap[..., (3 + clr) * M:(4 + clr) * M]
+    weights = pmap[..., (6 + clr) * M:(7 + clr) * M]
+    if clr == 1:
+        means = means + pmap[..., 9 * M:10 * M] * y0
+    elif clr == 2:
+        means = means + (pmap[..., 10 * M:11 * M] * y0
+                         + pmap[..., 11 * M:12 * M] * y1)
+    return stdevs, means, weights
 
 
 def pmap_cdf_spec(cfg: ModelConfig, b: int, clr: int):
@@ -236,10 +284,13 @@ class Codec:
     """Encoder/decoder around trained interpolator weights.
 
     ``params``: the JAX package's Flax parameters as numpy arrays (nested,
-    or flat as :func:`llicti_torch.weights.load_npz` gives them).
+    or flat as :func:`llicti_torch.weights.load_npz` or
+    :func:`llicti_torch.weights.init_params` give them).
     ``num_lanes`` (<= 1024) is an encoder/decoder-matched parameter: the
-    container does not record it.  Covers clr_joint_mode 2 with normal
-    mixtures, the flagship configuration's family.
+    container does not record it.  Codes what the JAX ``Codec`` codes on
+    its device backend and raises ``NotImplementedError`` on the rest:
+    subtract_mean, ycocg=False, clrchs < 3, a single mixture, and
+    clrjnt0seqmd with GDN1 (which couples the colours' channel groups).
     """
 
     serialize = staticmethod(serialize)
@@ -248,13 +299,19 @@ class Codec:
 
     def __init__(self, cfg: ModelConfig, params, device="cpu",
                  num_lanes: int = 512):
-        if not (cfg.clrchs == 3 and cfg.clr_joint_mode == 2 and cfg.ycocg
-                and cfg.distribution == "normal"
-                and not cfg.subtract_mean and cfg.num_mixtures > 1):
+        refused = [why for bad, why in (
+            (cfg.clrchs != 3, "clrchs < 3"),
+            (cfg.clr_joint_mode not in (0, 1, 2),
+             f"clr_joint_mode={cfg.clr_joint_mode}"),
+            (not cfg.ycocg, "ycocg=False"),
+            (cfg.subtract_mean, "subtract_mean"),
+            (cfg.num_mixtures < 2, "num_mixtures < 2"),
+            (seq_colours(cfg) and cfg.activfun == "GDN1",
+             "clrjnt0seqmd with GDN1")) if bad]
+        if refused:
             raise NotImplementedError(
-                "the port codes clrchs=3, clr_joint_mode=2, ycocg, normal "
-                "mixtures (M > 1) without subtract_mean; other variants "
-                "are not ported yet")
+                f"the codec does not code {', '.join(refused)} (neither "
+                "does the JAX package's)")
         if not 1 <= num_lanes <= 1024:
             raise ValueError(f"num_lanes={num_lanes}: must be in 1..1024")
         self.cfg = cfg
@@ -266,6 +323,7 @@ class Codec:
             torch.backends.cudnn.benchmark = False
             torch.backends.cudnn.deterministic = True
         self.N = num_lanes
+        self.logistic = cfg.distribution == "logistic"
         self.model = params_from_flax(params, cfg).to(self.device)
         self._pts: Dict[Tuple[int, int], torch.Tensor] = {}
         self.last_slice_bits: Optional[List[List[int]]] = None
@@ -291,21 +349,35 @@ class Codec:
         the rANS decode written back into ``y_lev`` in place."""
         cfg = self.cfg
         c = cfg.cond_channels
-        pmap = self.model.band_params(
-            y_lev[..., :c * (b + 1)].contiguous(), scl, b)
         ch, cw = band_coded_shape(y_lev.shape[1], y_lev.shape[2], b, padH,
                                   padW)
-        pm = pmap[0, :ch, :cw].reshape(ch * cw, -1).contiguous()
+
+        def coded_rows(t):  # [1, h, w, C] -> [ch * cw, C]
+            return t[0, :ch, :cw].reshape(ch * cw, -1).contiguous()
+
+        y_cond = y_lev[..., :c * (b + 1)].contiguous()
+        seq = seq_colours(cfg)
+        if seq:
+            base = self.model.band_base(y_cond, scl, b)
+        else:
+            pm = coded_rows(self.model.band_params(y_cond, scl, b))
+        sch0 = sym_channel(cfg, b, 0)
         sf = []
         for clr in range(3):
+            if seq:
+                # this colour's params from the pixel's colours decoded so
+                # far: both directions run the trunk on the same shapes
+                pm = coded_rows(self.model.band_params_seq(
+                    base, y_lev[..., sch0:sch0 + 2], scl, b, clr))
             # rebuilt per colour: decode writes each colour back before the
             # next one's cross-colour mean update reads it
-            y2 = y_lev[0, :ch, :cw].reshape(ch * cw, -1).contiguous()
+            y2 = coded_rows(y_lev)
             minv = ranges[clr][0]
             M, std0, mean0, w0, upd = pmap_cdf_spec(cfg, b, clr)
             sch = sym_channel(cfg, b, clr)
             cum, start, freq = gmm_cdf_from_pmap(
-                pts3[clr], pm, y2, M, std0, mean0, w0, upd, sch, minv)
+                pts3[clr], pm, y2, M, std0, mean0, w0, upd, self.logistic,
+                sch, minv)
             if dec is None:
                 sf.append((start, freq))
                 continue
@@ -335,9 +407,11 @@ class Codec:
         ranges = [clr_range(clr, minmax) for clr in range(3)]
         pts3 = self._pts3(ranges)
 
-        x = torch.from_numpy(np.ascontiguousarray(rgb)).to(self.device)
-        y_list, _, _ = lazy_dwt(
-            self._to_y(rgb_int_to_ycocg_r_int(x)), cfg.dwtlevels, pad=True)
+        x = self._to_y(rgb_int_to_ycocg_r_int(
+            torch.from_numpy(np.ascontiguousarray(rgb)).to(self.device)))
+        if clr_offset(cfg):
+            x = torch.cat((torch.zeros_like(x[..., :1]), x), dim=-1)
+        y_list, _, _ = lazy_dwt(x, cfg.dwtlevels, pad=True)
         sf = []  # (start, freq) per slice, decode order
         for scl in range(S - 1, -1, -1):
             padH, padW = pad_flags[scl]
@@ -401,17 +475,20 @@ class Codec:
                 self.device),
             offset=torch.zeros((1,), dtype=torch.int32, device=self.device))
 
+        off = clr_offset(cfg)
         y_lev = None
         for scl in range(S - 1, -1, -1):
             if scl == S - 1:
                 x00 = self._to_y(rgb_int_to_ycocg_r_int(
                     torch.from_numpy(raw.copy()).to(self.device)))
+                lo, hi = off, off + 3
             else:
                 x00 = interleave_scale(y_lev, c, int(pad_flags[scl + 1][0]),
                                        int(pad_flags[scl + 1][1]))
+                lo, hi = 0, c
             y_lev = torch.zeros(x00.shape[:3] + (4 * c,),
                                 dtype=torch.float32, device=self.device)
-            y_lev[..., 0:c] = x00
+            y_lev[..., lo:hi] = x00
             padH, padW = pad_flags[scl]
             for b in range(3):
                 self._band(y_lev, scl, b, padH, padW, ranges, pts3, dec)
@@ -419,7 +496,8 @@ class Codec:
         crop_h, crop_w = int(pad_flags[0][0]), int(pad_flags[0][1])
         y_c = interleave_scale(y_lev, c, crop_h, crop_w)
         shift = torch.tensor(_SHIFT, dtype=torch.int32, device=self.device)
-        ycocg = torch.round(y_c[..., 0:3] * 255.0).to(torch.int32) + shift
+        ycocg = (torch.round(y_c[..., off:off + 3] * 255.0).to(torch.int32)
+                 + shift)
         rgb = ycocg_r_int_to_rgb_int(ycocg).to(torch.uint8)
         if xorg is not None:
             xorg = np.asarray(xorg).reshape(ycocg.shape)

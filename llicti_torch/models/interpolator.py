@@ -1,22 +1,26 @@
 """Interpolator network: the conditional-GMM parameter CNN of one
 (scale, band).
 
-Port of ``llicti_tpu/models/interpolator.py:109-292`` (codec path).  Layer
+Port of ``llicti_tpu/models/interpolator.py:92-304`` (codec path).  Layer
 0 is band-geometry specific: small Ev/Od kernels with asymmetric
 replicate padding that align receptive fields with the polyphase sample
-positions; the trunk is grouped 1x1 convs.  Public tensors are NHWC like
-the JAX package's; inside, the convs run NCHW.  GDN1, the clrjnt0seqmd
-sequential colours and subtract_mean are not ported yet.
+positions; the trunk is grouped 1x1 convs.  ``band=-1``
+(combine_layers1toL) holds every band's layer-0 convs and picks them by
+the conditioning channel count.  With clrjnt0seqmd, the current pixel's
+earlier colours feed the later colours' channel groups through
+``seq_toCo`` / ``seq_toCg`` (:meth:`Interpolator.params_from_base`).
+Public tensors are NHWC like the JAX package's; inside, the convs run
+NCHW.  subtract_mean (a training variant) is not ported.
 """
 from __future__ import annotations
-
-from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from llicti_tpu.config import ModelConfig
+
+from ..ops.gdn import GDN1
 
 
 def interpolator_dims(cfg: ModelConfig, scale: int):
@@ -51,6 +55,12 @@ def interpolator_dims(cfg: ModelConfig, scale: int):
     return grps, Ch, Co, c, grp0
 
 
+def seq_colours(cfg: ModelConfig) -> bool:
+    """Whether the config conditions later colours on earlier ones of the
+    same pixel (clrjnt0seqmd)."""
+    return cfg.clrchs == 3 and cfg.clr_joint_mode == 0 and cfg.clrjnt0seqmd
+
+
 def _activation(kind: str, channels: int) -> nn.Module:
     if kind == "ReLU":
         return nn.ReLU()
@@ -58,49 +68,43 @@ def _activation(kind: str, channels: int) -> nn.Module:
         return nn.LeakyReLU(0.01)
     if kind == "PReLU":
         return nn.PReLU(num_parameters=channels, init=0.25)
-    raise NotImplementedError(f"activfun={kind!r} is not ported yet")
+    if kind == "GDN1":
+        return GDN1(channels)
+    return nn.Identity()  # any other name, as the JAX _Activation
+
+
+def _layer0_specs(Ev: int, Od: int):
+    """band -> [(input band unit, conv name, kernel (kh, kw), replicate
+    pad (left, right, top, bottom))] of layer 0."""
+    e0, e1, o = Ev // 2 - 1, Ev // 2, Od // 2
+    return {
+        0: [(0, "conv_00_11", (Ev, Ev), (e0, e1, e0, e1))],
+        1: [(0, "conv_00_01", (Od, Ev), (e0, e1, o, o)),
+            (1, "conv_11_01", (Ev, Od), (o, o, e1, e0))],
+        2: [(0, "conv_00_10", (Ev, Od), (o, o, e0, e1)),
+            (1, "conv_11_10", (Od, Ev), (e1, e0, o, o)),
+            (2, "conv_01_10", (Ev, Ev), (e1, e0, e0, e1))],
+    }
 
 
 class Interpolator(nn.Module):
-    """One conditional-GMM parameter network for a (scale, band)."""
+    """One conditional-GMM parameter network for a (scale, band); band -1
+    serves all three bands."""
 
     def __init__(self, cfg: ModelConfig, scale: int, band: int):
         super().__init__()
-        if cfg.clrchs == 3 and cfg.clr_joint_mode == 0 and cfg.clrjnt0seqmd:
-            raise NotImplementedError("clrjnt0seqmd is not ported yet")
+        if band not in (0, 1, 2, -1):
+            raise ValueError(f"band={band}")
         grps, Ch, Co, c, grp0 = interpolator_dims(cfg, scale)
         self.c = c
-        Ev, Od = cfg.evens[scale], cfg.odds[scale]
-
-        def conv(kh, kw):
-            return nn.Conv2d(c, Ch, (kh, kw), groups=grp0)
-
-        # (input channel unit, conv name, pad as (left, right, top, bottom))
-        if band == 0:
-            self.conv_00_11 = conv(Ev, Ev)
-            specs = [(0, "conv_00_11", (Ev // 2 - 1, Ev // 2,
-                                        Ev // 2 - 1, Ev // 2))]
-        elif band == 1:
-            self.conv_00_01 = conv(Od, Ev)
-            self.conv_11_01 = conv(Ev, Od)
-            specs = [(0, "conv_00_01", (Ev // 2 - 1, Ev // 2,
-                                        Od // 2, Od // 2)),
-                     (1, "conv_11_01", (Od // 2, Od // 2,
-                                        Ev // 2, Ev // 2 - 1))]
-        elif band == 2:
-            self.conv_00_10 = conv(Ev, Od)
-            self.conv_11_10 = conv(Od, Ev)
-            self.conv_01_10 = conv(Ev, Ev)
-            specs = [(0, "conv_00_10", (Od // 2, Od // 2,
-                                        Ev // 2 - 1, Ev // 2)),
-                     (1, "conv_11_10", (Ev // 2, Ev // 2 - 1,
-                                        Od // 2, Od // 2)),
-                     (2, "conv_01_10", (Ev // 2, Ev // 2 - 1,
-                                        Ev // 2 - 1, Ev // 2))]
-        else:
-            raise NotImplementedError(f"band={band} (combine_layers1toL) "
-                                      "is not ported yet")
-        self._specs: Tuple = tuple(specs)
+        specs = _layer0_specs(cfg.evens[scale], cfg.odds[scale])
+        self._specs = {b: s for b, s in specs.items() if band in (b, -1)}
+        for spec in self._specs.values():
+            for _, name, kernel, _ in spec:
+                self.add_module(name, nn.Conv2d(c, Ch, kernel, groups=grp0))
+        if seq_colours(cfg):
+            self.seq_toCo = nn.Conv2d(1, Ch // 3, 1)
+            self.seq_toCg = nn.Conv2d(2, Ch // 3, 1)
         self.act0 = _activation(cfg.activfun, Ch)
         trunk = []
         for _ in range(cfg.conv_layers - 2):
@@ -109,15 +113,49 @@ class Interpolator(nn.Module):
         trunk.append(nn.Conv2d(Ch, Co, 1, groups=grps))
         self.trunk = nn.Sequential(*trunk)
 
-    def forward(self, y_cond: torch.Tensor) -> torch.Tensor:
-        """Conditioning bands ``[B, H, W, c*(band+1)]`` -> GMM parameter map
-        ``[B, H, W, Co]`` (contiguous)."""
+    def _base(self, y_cond: torch.Tensor) -> torch.Tensor:
+        """Pre-activation layer-0 sum, NCHW."""
         x = y_cond.permute(0, 3, 1, 2)
         c = self.c
+        band = y_cond.shape[-1] // c - 1
+        if band not in self._specs:
+            raise ValueError(f"{y_cond.shape[-1]} conditioning channels fit "
+                             f"no band of this interpolator")
         out = None
-        for unit, name, pad in self._specs:
+        for unit, name, _, pad in self._specs[band]:
             xb = x[:, unit * c:(unit + 1) * c].contiguous()
             o = getattr(self, name)(F.pad(xb, pad, mode="replicate"))
             out = o if out is None else out + o
-        h = self.trunk(self.act0(out))
+        return out
+
+    def _head(self, base: torch.Tensor) -> torch.Tensor:
+        """Activation + trunk of an NCHW base -> NHWC contiguous pmap."""
+        h = self.trunk(self.act0(base))
         return h.permute(0, 2, 3, 1).contiguous()
+
+    def forward(self, y_cond: torch.Tensor) -> torch.Tensor:
+        """Conditioning bands ``[B, H, W, c*(band+1)]`` -> GMM parameter map
+        ``[B, H, W, Co]`` (contiguous)."""
+        return self._head(self._base(y_cond))
+
+    def band_base(self, y_cond: torch.Tensor) -> torch.Tensor:
+        """clrjnt0seqmd codec path: the pre-activation layer-0 map
+        ``[B, H, W, Ch]`` (an NHWC view of an NCHW tensor)."""
+        return self._base(y_cond).permute(0, 2, 3, 1)
+
+    def params_from_base(self, base: torch.Tensor, y_seq: torch.Tensor,
+                         clr: int) -> torch.Tensor:
+        """clrjnt0seqmd codec path: add the current pixel's colours below
+        ``clr`` (``y_seq`` ``[B, H, W, 2]``, Y and Co) to the later colours'
+        channel groups of ``base``, then activation + trunk.  The groups of
+        colour ``clr`` depend on colours < ``clr`` only, so a decoder that
+        holds just those computes the same map."""
+        b = base.permute(0, 3, 1, 2)
+        ys = y_seq.permute(0, 3, 1, 2)
+        K = b.shape[1] // 9
+        parts = [b[:, :3 * K], b[:, 3 * K:6 * K], b[:, 6 * K:]]
+        if clr >= 1:
+            parts[1] = parts[1] + self.seq_toCo(ys[:, 0:1].contiguous())
+        if clr >= 2:
+            parts[2] = parts[2] + self.seq_toCg(ys[:, 0:2].contiguous())
+        return self._head(torch.cat(parts, dim=1) if clr >= 1 else b)

@@ -1,9 +1,7 @@
 """GMM bound constants and the CDF sampling grid.
 
-Port of ``llicti_tpu/ops/gmm.py:28-33,87-98`` and the forward value of
-``ops/bounds.py`` (``lower_bound`` is ``max(x, bound)``; its gradient is
-training code and is not ported yet).  Pixel values live in the /255
-domain.
+Port of ``llicti_tpu/ops/gmm.py:28-33,87-98``.  Pixel values live in the
+/255 domain.
 """
 from __future__ import annotations
 

@@ -1,11 +1,15 @@
 """Carry the JAX package's Flax parameters into the port's modules.
 
 Parameters cross over as numpy arrays under flat '/'-joined Flax names,
-``models_{m}_{b}/{conv_00_11,...,trunk_0,trunk_2}/Conv_0/{kernel,bias}``
-(and ``.../PReLU_0/alpha`` for PReLU), which is also the key layout of the
-committed ``weights/bench_params.npz`` (the trained flagship weights,
-written by ``tools/export_torch_params.py``).  Conv kernels go from Flax's
-HWIO to PyTorch's OIHW.
+``models_{m}_{b}/{layer}/{Conv_0/kernel, Conv_0/bias, PReLU_0/alpha,
+GDN1_0/beta, GDN1_0/gamma}`` with ``layer`` one of the layer-0 convs
+(``conv_00_11``, ...), ``seq_toCo`` / ``seq_toCg`` (clrjnt0seqmd),
+``act0`` or ``trunk_{i}``, and ``b`` 0 alone under combine_layers1toL.
+That is also the key layout of the committed ``weights/bench_params.npz``
+(the trained flagship weights, written by
+``tools/export_torch_params.py``).  Conv kernels go from Flax's HWIO to
+PyTorch's OIHW.  :func:`init_params` makes fresh parameters of any
+configuration in the same layout, without JAX.
 """
 from __future__ import annotations
 
@@ -14,13 +18,20 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
 from llicti_tpu.config import ModelConfig
 
 from .models.llicti import LLICTIModel
+from .ops.gdn import GDN1, gdn_init
 
 BENCH_PARAMS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "weights", "bench_params.npz")
+
+# Flax leaf -> PyTorch parameter of the module that holds it
+_LEAVES = {"Conv_0/kernel": "weight", "Conv_0/bias": "bias",
+           "PReLU_0/alpha": "weight", "GDN1_0/beta": "beta",
+           "GDN1_0/gamma": "gamma"}
 
 
 def flat_params(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -39,20 +50,13 @@ def flat_params(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
 
 
 def _torch_name(flax_name: str) -> str:
-    parts = flax_name.split("/")
-    head, layer, leaf = parts[0], parts[1], parts[2:]
+    head, layer, leaf = flax_name.split("/", 2)
+    if leaf not in _LEAVES:
+        raise KeyError(f"unknown parameter {flax_name!r}")
     _, m, b = head.split("_")
     if layer.startswith("trunk_"):
         layer = f"trunk.{int(layer[len('trunk_'):])}"
-    if leaf == ["Conv_0", "kernel"]:
-        suffix = "weight"
-    elif leaf == ["Conv_0", "bias"]:
-        suffix = "bias"
-    elif leaf == ["PReLU_0", "alpha"]:
-        suffix = "weight"
-    else:
-        raise KeyError(f"unknown parameter {flax_name!r}")
-    return f"models.{int(m)}.{int(b)}.{layer}.{suffix}"
+    return f"models.{int(m)}.{int(b)}.{layer}.{_LEAVES[leaf]}"
 
 
 def params_from_flax(params: Mapping, cfg: ModelConfig) -> LLICTIModel:
@@ -68,6 +72,44 @@ def params_from_flax(params: Mapping, cfg: ModelConfig) -> LLICTIModel:
     model = LLICTIModel(cfg)
     model.load_state_dict(state, strict=True)
     return model.eval()
+
+
+def init_params(cfg: ModelConfig, seed: int = 0) -> Dict[str, np.ndarray]:
+    """Fresh parameters of ``cfg`` as {flat Flax name: float32 array}, with
+    the names, shapes and init distributions of ``LLICTIModel.init`` in the
+    JAX package (``interpolator.py:32-43``): conv kernels and biases
+    U(+-1/sqrt(fan_in)), PReLU slopes 0.25, GDN1 beta = 1 and gamma =
+    0.1 I (stored parametrised).  Drawn from
+    ``np.random.default_rng(seed)``; no global RNG is touched."""
+    rng = np.random.default_rng(seed)
+
+    def uniform(fan_in, shape):
+        bound = 1.0 / np.sqrt(fan_in)
+        return rng.uniform(-bound, bound, shape).astype(np.float32)
+
+    with torch.device("meta"):  # shapes only: no values, no RNG
+        model = LLICTIModel(cfg)
+    out: Dict[str, np.ndarray] = {}
+    for path, mod in model.named_modules():
+        parts = path.split(".")  # models.m.b.layer[.i]
+        if len(parts) < 4:
+            continue
+        name = f"models_{parts[1]}_{parts[2]}/" + "_".join(parts[3:])
+        if isinstance(mod, nn.Conv2d):
+            o, i, kh, kw = mod.weight.shape
+            # the JAX seq convs take their bias fan-in from in_features=1
+            bias_fan = 1 if parts[3].startswith("seq_to") else i * kh * kw
+            out[f"{name}/Conv_0/kernel"] = uniform(i * kh * kw,
+                                                   (kh, kw, i, o))
+            out[f"{name}/Conv_0/bias"] = uniform(bias_fan, (o,))
+        elif isinstance(mod, nn.PReLU):
+            out[f"{name}/PReLU_0/alpha"] = np.full(
+                mod.weight.shape, 0.25, np.float32)
+        elif isinstance(mod, GDN1):
+            beta, gamma = gdn_init(mod.beta.shape[0])
+            out[f"{name}/GDN1_0/beta"] = beta
+            out[f"{name}/GDN1_0/gamma"] = gamma
+    return out
 
 
 def load_npz(path: str = BENCH_PARAMS) -> Dict[str, np.ndarray]:
