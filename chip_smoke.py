@@ -5,16 +5,27 @@ Usage: python3 chip_smoke.py        (from the repository root, one GPU)
 
 Phases, each of which raises on failure:
   1. print the card (nvidia-smi name and power limit); require CUDA;
-  2. build the CUDA kernels from llicti_torch/csrc and print the build time;
+  2. build the CUDA kernels from llicti_torch/csrc, print the build time,
+     ptxas's registers / stack frame / spills of every kernel (Kernel 1's
+     instances must have no stack frame and no spills) and Kernel 1's
+     occupancy; check the normal mixture term's saturation shortcut
+     against the full formula on every float;
   3. hold each kernel against its plain PyTorch version on the card at the
      main path's shapes (the finest band of a 512x768 image, 1024 lanes),
      and time both: Kernel 1 in its normal and logistic branches, Kernel 4
      (gmm_cdf_table_int32) on gmm_slice_params of the same parameter map,
-     the rANS decode and encode;
+     the rANS decode and encode; each kernel's bound (bytes over 3.35 TB/s
+     or float operations over 67 TFLOP/s, the H100 SXM's published peaks)
+     is computed from the inputs timed;
+  3b. the rANS decode against its plain version on synthetic tables of
+     P = 2 ... 513 with rows below cum[0] and at or above cum[P-2], n not a
+     multiple of N, N = 1000 and 1024: random states and words, and a round
+     trip through the encoder;
   4. check the CUDA model against the CPU one on a small crop;
   5. the main path: Codec.compress -> serialize -> deserialize ->
      decompress of synthetic_image(512, 768, seed=42) with the trained
      flagship weights, byte-exact, with every kernel's launch count > 0;
+     prints the container's sha256 and size;
   6. the same round trip on a 310x598 image (odd sizes, pad flags);
   7. Kernel 4's path (it lies on no codec path, in this package or the JAX
      one): tables of the finest band from gmm_slice_params, rANS-encoded
@@ -30,7 +41,9 @@ The line before the last is {"kernels": [...]}; the last line is
 """
 from __future__ import annotations
 
+import hashlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -44,7 +57,8 @@ from llicti_torch import codec as cmod
 from llicti_torch.coder import rans
 from llicti_torch.ops import cdf
 from llicti_torch.ops.color import rgb_int_to_ycocg_r_int
-from llicti_torch.ops.gmm import cdf_sampling_points
+from llicti_torch.ops.bounds import lower_bound
+from llicti_torch.ops.gmm import SCALE_BOUND_NORMAL, cdf_sampling_points
 from llicti_torch.ops.wavelet import lazy_dwt
 from llicti_torch.weights import init_params
 
@@ -67,6 +81,25 @@ VARIANTS = [
     ("clrjnt2 combine_layers1toL", {"combine_layers1toL": True}, False,
      False),
 ]
+
+
+# H100 SXM published peaks: HBM3 bandwidth, dense FP32 rate
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+# float operations of one mixture term: the normal one in full and with
+# its saturation shortcut taken (z, the add; cdf.cuh); the logistic one
+NORMAL_OPS, NORMAL_SAT_OPS = 24, 4
+LOGISTIC_OPS = 8
+ENTRY_OPS = 3  # clamp, scale, round of each table entry
+# Kernel 4 lies on no codec path; Kernel 1 runs once per colour slice in
+# each direction of a round trip, the rANS kernels once per slice in theirs
+
+
+def bound(nbytes: float, flops: float):
+    """(least ms the card could take, what sets it)."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    tf = flops / F32_FLOP_PER_S * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
 def card_line() -> str:
@@ -103,8 +136,32 @@ def max_abs(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.long() - b.long()).abs().max()) if a.numel() else 0
 
 
+def term_ops(pts, pm, y2, spec, logistic: bool):
+    """(float operations Kernel 1 needs on these inputs, share of mixture
+    terms saturated): each normal term costs its full arithmetic unless its
+    erf saturates (the shortcut of cdf.cuh), each logistic term its full
+    arithmetic; plus the per-entry quantisation."""
+    M, s0, m0, w0, upd = spec
+    entries = pm.shape[0] * pts.shape[0]
+    if logistic:
+        return entries * (M * LOGISTIC_OPS + ENTRY_OPS), 0.0
+    std = lower_bound(pm[:, s0:s0 + M], SCALE_BOUND_NORMAL)
+    mean = pm[:, m0:m0 + M]
+    for coef0, ych in upd:
+        mean = mean + pm[:, coef0:coef0 + M] * y2[:, ych:ych + 1]
+    inv = 1.0 / std
+    sat = 0
+    for x in range(M):
+        z = (pts[None, :] - mean[:, x:x + 1]) * inv[:, x:x + 1]
+        sat += int(((z * cdf._SQRT2_INV).abs() > 10.5).sum())
+    terms = entries * M
+    return ((terms - sat) * NORMAL_OPS + sat * NORMAL_SAT_OPS
+            + entries * ENTRY_OPS), sat / terms
+
+
 def kernel_phase(codec, img):
-    """Kernels vs plain versions at the finest band of ``img``."""
+    """Kernels vs plain versions at the finest band of ``img``; per kernel
+    (max |d|, mean ms, mean plain ms, bound ms, bound_by)."""
     cfg, dev = codec.cfg, codec.device
     minmax, _ = cmod.host_header(img[None], cfg.dwtlevels)
     ranges = [cmod.clr_range(clr, minmax) for clr in range(3)]
@@ -113,46 +170,55 @@ def kernel_phase(codec, img):
                             cfg.dwtlevels, pad=True)
     y0 = y_list[0]
     h, w = y0.shape[1], y0.shape[2]
+    n = h * w
     with torch.inference_mode():
         pmap = codec.model.band_params(y0[..., :3].contiguous(), 0, 0)
-    pm = pmap[0].reshape(h * w, -1).contiguous()
-    y2 = y0[0].reshape(h * w, -1).contiguous()
+    pm = pmap[0].reshape(n, -1).contiguous()
+    y2 = y0[0].reshape(n, -1).contiguous()
     results = {}
 
     def compare_tables(label, cum, pcum):
         d = (cum.long() - pcum.long()).abs()
         mism = int((d > 0).sum())
-        check(int(d.max()) <= 1, f"{label}: kernel differs by > 1 step")
+        check(mism == 0, f"{label}: {mism} entries differ from the plain "
+              "version")
         check(bool((cum[..., -1] == 65536).all()), "last entry != 2^16")
         check(bool((cum[..., 1:] > cum[..., :-1]).all()),
               "rows not increasing")
         return int(d.max()), mism, d.numel()
 
-    def report(label, P, err, mism, size, ms, plain_ms):
-        print(f"{label} n={h * w} P={P}: max|d|={err} "
-              f"mismatches={mism}/{size} ({100.0 * mism / size:.5f}%), "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    def report(label, P, err, mism, size, ms, plain_ms, bnd, extra=""):
+        print(f"{label} n={n} P={P}: max|d|={err} "
+              f"mismatches={mism}/{size}, kernel {ms:.5f} ms, plain "
+              f"{plain_ms:.5f} ms, bound {bnd[0]:.5f} ms ({bnd[1]}), "
+              f"{100.0 * bnd[0] / ms:.1f}% of it{extra}")
 
     def cdf_case(clr, minv, maxv, logistic=False):
-        M, s0, m0, w0, upd = cmod.pmap_cdf_spec(cfg, 0, clr)
+        spec = cmod.pmap_cdf_spec(cfg, 0, clr)
+        M, s0, m0, w0, upd = spec
         sch = cmod.sym_channel(cfg, 0, clr)
         pts = cdf_sampling_points(minv, maxv).to(dev)
         args = (pts, pm, y2, M, s0, m0, w0, upd, logistic, sch, minv)
         cum, st, fr = cdf.gmm_cdf_from_pmap(*args)
-        pcum, _, _ = cdf.gmm_cdf_from_pmap_plain(*args)
+        pcum, pst, pfr = cdf.gmm_cdf_from_pmap_plain(*args)
         torch.cuda.synchronize()
         P = cum.shape[1]
         label = f"kernel1{' logistic' if logistic else ''} clr={clr}"
         err, mism, size = compare_tables(label, cum, pcum)
-        sym = (torch.round(y2[:, sch] * 255.0).int() - minv).clamp(0, P - 2)
-        lo = cum.gather(1, sym.long()[:, None])[:, 0]
-        hi = cum.gather(1, sym.long()[:, None] + 1)[:, 0]
-        check(bool(torch.equal(st, lo) and torch.equal(fr, hi - lo)),
-              "kernel (start, freq) != lookup into its own table")
+        check(bool(torch.equal(st, pst) and torch.equal(fr, pfr)),
+              f"{label}: (start, freq) != the plain version's")
         ms = cuda_ms(lambda: cdf.gmm_cdf_from_pmap(*args), 20)
         plain_ms = cuda_ms(lambda: cdf.gmm_cdf_from_pmap_plain(*args), 5)
-        report(label, P, err, mism, size, ms, plain_ms)
-        return cum, st, fr, err, ms, plain_ms
+        flops, sat = term_ops(pts, pm, y2, spec, logistic)
+        # per pixel the M * (3 + n_upd) pmap channels and the y channels
+        # the kernel reads, the row and (start, freq) written; the points
+        y_read = len({ych for _, ych in upd} | {sch})
+        nbytes = 4 * (n * (M * (3 + len(upd)) + y_read + P + 2) + P)
+        bnd = bound(nbytes, flops)
+        report(label, P, err, mism, size, ms, plain_ms, bnd,
+               f"; {100 * sat:.1f}% of mixture terms saturated, "
+               f"{flops / (ms * 1e9):.2f} TFLOP/s of needed work")
+        return (cum, st, fr), (err, ms, plain_ms) + bnd
 
     def table_case(clr, minv, maxv):
         """Kernel 4 on gmm_slice_params of the same parameter map."""
@@ -162,33 +228,44 @@ def kernel_phase(codec, img):
         cum = cdf.gmm_cdf_table_int32(pts, *params)
         pcum = cdf.gmm_cdf_table_int32_plain(pts, *params)
         torch.cuda.synchronize()
+        P = cum.shape[-1]
         err, mism, size = compare_tables(f"kernel4 clr={clr}", cum, pcum)
         ms = cuda_ms(lambda: cdf.gmm_cdf_table_int32(pts, *params), 20)
         plain_ms = cuda_ms(
             lambda: cdf.gmm_cdf_table_int32_plain(pts, *params), 5)
-        report(f"kernel4 clr={clr}", cum.shape[-1], err, mism, size, ms,
-               plain_ms)
-        return err, ms, plain_ms
+        X = params[0].shape[-1]
+        z = (pts[None, None, None, None, :] - params[1][..., None]) \
+            / lower_bound(params[0], SCALE_BOUND_NORMAL)[..., None]
+        sat = int(((z * cdf._SQRT2_INV).abs() > 10.5).sum())
+        terms = n * P * X
+        flops = (terms - sat) * NORMAL_OPS + sat * NORMAL_SAT_OPS \
+            + n * P * ENTRY_OPS
+        bnd = bound(4 * (3 * n * X + P + n * P), flops)
+        report(f"kernel4 clr={clr}", P, err, mism, size, ms, plain_ms, bnd)
+        return (err, ms, plain_ms) + bnd
 
     def summary(cases, widest):
-        """(max |d| over every case, mean ms and plain ms over the image's
-        three colour slices)"""
-        return (max([c[-3] for c in cases] + widest),
-                sum(c[-2] for c in cases) / 3, sum(c[-1] for c in cases) / 3)
+        """(max |d| over every case, then the means of ms, plain ms and
+        bound ms over the image's three colour slices, bound_by)"""
+        return (max([c[0] for c in cases] + widest),
+                sum(c[1] for c in cases) / 3, sum(c[2] for c in cases) / 3,
+                sum(c[3] for c in cases) / 3,
+                max(cases, key=lambda c: c[3])[4])
 
     # Kernel 1 on the three slices of the band (the image's ranges), then
     # at the widest tables: Y at P=257 and Co at P=513; both branches
     sf, tables, k1 = [], [], []
     for clr in range(3):
-        cum, st, fr, err, ms, plain_ms = cdf_case(clr, *ranges[clr])
+        (cum, st, fr), res = cdf_case(clr, *ranges[clr])
         sf.append((st, fr))
         tables.append(cum)
-        k1.append((err, ms, plain_ms))
-    widest = [cdf_case(0, -127, 128)[3], cdf_case(1, -256, 255)[3]]
+        k1.append(res)
+    widest = [cdf_case(0, -127, 128)[1][0], cdf_case(1, -256, 255)[1][0]]
     results["cdf"] = summary(k1, widest)
-    k1l = [cdf_case(clr, *ranges[clr], logistic=True)[3:]
+    k1l = [cdf_case(clr, *ranges[clr], logistic=True)[1]
            for clr in range(3)]
-    widest = [cdf_case(0, -127, 128, True)[3], cdf_case(1, -256, 255, True)[3]]
+    widest = [cdf_case(0, -127, 128, True)[1][0],
+              cdf_case(1, -256, 255, True)[1][0]]
     results["cdf_logistic"] = summary(k1l, widest)
     k4 = [table_case(clr, *ranges[clr]) for clr in range(3)]
     results["table"] = summary(k4, [table_case(0, -127, 128)[0],
@@ -196,7 +273,7 @@ def kernel_phase(codec, img):
 
     # Kernel 3: encode the three slices (reverse order), kernel vs plain
     N = codec.N
-    cap = 3 * (h * w) + N
+    cap = 3 * n + N
 
     def enc(fn):
         states = torch.full((N,), rans.RANS_L, dtype=torch.int64, device=dev)
@@ -214,7 +291,7 @@ def kernel_phase(codec, img):
     enc_err = max(max_abs(ks, ps), max_abs(kb[:total], pb[:total]))
     check(enc_err == 0, "rANS encode kernel != plain version")
     blob = rans.pack_stream_packed(kb[:total].cpu().numpy(), ks.cpu().numpy())
-    print(f"kernel3 encode: 3 slices x {h * w} symbols, N={N}: "
+    print(f"kernel3 encode: 3 slices x {n} symbols, N={N}: "
           f"{total} words, identical stream bytes and states")
     st0, fr0 = sf[0]
 
@@ -223,11 +300,19 @@ def kernel_phase(codec, img):
                 torch.zeros((1,), dtype=torch.int32, device=dev),
                 torch.zeros((cap,), dtype=torch.int32, device=dev))
 
-    results["encode"] = (
-        enc_err, cuda_ms(lambda s, c, b: rans.rans_encode(st0, fr0, s, c, b), 20,
-                   fresh_enc),
-        cuda_ms(lambda s, c, b: rans.rans_encode_plain(st0, fr0, s, c, b), 3,
-                fresh_enc))
+    s, c, b = fresh_enc(0)
+    rans.rans_encode(st0, fr0, s, c, b)
+    words0 = int(c[0])
+    enc_ms = cuda_ms(lambda s, c, b: rans.rans_encode(st0, fr0, s, c, b), 20,
+                     fresh_enc)
+    enc_plain = cuda_ms(
+        lambda s, c, b: rans.rans_encode_plain(st0, fr0, s, c, b), 3,
+        fresh_enc)
+    # (start, freq) read, words written, states read and written
+    bnd = bound(8 * n + 4 * words0 + 16 * N, 0)
+    results["encode"] = (enc_err, enc_ms, enc_plain) + bnd
+    print(f"kernel3 encode, Y slice: kernel {enc_ms:.5f} ms, plain "
+          f"{enc_plain:.5f} ms, bound {bnd[0]:.5f} ms ({bnd[1]})")
 
     # Kernel 2: decode the blob, kernel vs plain; symbols must round-trip
     states_np, words_np = rans.unpack_stream(blob, N)
@@ -257,12 +342,102 @@ def kernel_phase(codec, img):
         return (torch.from_numpy(states_np.astype(np.int64)).to(dev),
                 torch.zeros((1,), dtype=torch.int32, device=dev))
 
-    results["decode"] = (
-        dec_err, cuda_ms(lambda s, o: rans.rans_decode(tables[0], words, s, o), 20,
-                   fresh_dec),
-        cuda_ms(lambda s, o: rans.rans_decode_plain(tables[0], words, s, o),
-                3, fresh_dec))
+    s, o = fresh_dec(0)
+    rans.rans_decode(tables[0], words, s, o)
+    P0 = tables[0].shape[1]
+    dec_ms = cuda_ms(lambda s, o: rans.rans_decode(tables[0], words, s, o),
+                     20, fresh_dec)
+    dec_plain = cuda_ms(
+        lambda s, o: rans.rans_decode_plain(tables[0], words, s, o), 3,
+        fresh_dec)
+    # per symbol the ceil(log2(P + 1)) entries a search reads and the
+    # symbol written; the words read; states read and written
+    searched = math.ceil(math.log2(P0 + 1))
+    bnd = bound(4 * n * (searched + 1) + 4 * int(o[0]) + 16 * N, 0)
+    results["decode"] = (dec_err, dec_ms, dec_plain) + bnd
+    steps = -(-n // N)
+    print(f"kernel2 decode, Y slice P={P0}: kernel {dec_ms:.5f} ms "
+          f"({1e3 * dec_ms / steps:.3f} us per step of {steps}), plain "
+          f"{dec_plain:.5f} ms, bound {bnd[0]:.5f} ms ({bnd[1]})")
     return results
+
+
+def synthetic_tables(gen, n: int, P: int, dev):
+    """[n, P] int32 rows, strictly increasing, last entry 2^16, of three
+    kinds: a first entry in [1, 4) (the coder takes no frequency of 2^16);
+    a first entry in [20000, 40000), so that
+    slots below it decode to s = -1; nearly all mass on the last symbol, so
+    that most slots are at or above cum[P-2]."""
+    kind = torch.randint(0, 3, (n,), generator=gen, device=dev)
+    first = torch.where(
+        kind == 1, torch.randint(20000, 40000, (n,), generator=gen,
+                                 device=dev),
+        torch.randint(1, 4, (n,), generator=gen, device=dev))
+    span = 65536 - first - (P - 1)
+    wts = -torch.log(torch.rand((n, P - 1), generator=gen, device=dev)
+                     .clamp_min(1e-12))
+    wts[:, -1] += torch.where(kind == 2, 1e3 * P, 0.0)
+    inc = (wts / wts.sum(1, keepdim=True) * span[:, None]).floor().long()
+    inc[:, -1] += span - inc.sum(1)
+    inc += 1
+    cum = torch.cat([first[:, None], first[:, None] + inc.cumsum(1)], 1)
+    return cum.int().contiguous()
+
+
+def decode_edge_phase(dev):
+    """Kernel 2 against rans_decode_plain on synthetic tables; returns the
+    number of cases (every one bit-identical)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    cases = 0
+    for N in (1000, 1024):
+        for P in (2, 31, 32, 33, 97, 257, 513):
+            n = 5 * N + 37
+            cum = synthetic_tables(gen, n, P, dev)
+            check(bool((cum[:, -1] == 65536).all()
+                       and (cum[:, 1:] > cum[:, :-1]).all()), "bad table")
+            # random states and words: every branch of the search
+            st0 = torch.randint(1 << 16, 1 << 32, (N,), generator=gen,
+                                device=dev)
+            words = torch.randint(0, 1 << 16, (n + 3 * N,), generator=gen,
+                                  device=dev).int()
+            outs = []
+            for fn in (rans.rans_decode, rans.rans_decode_plain):
+                states = st0.clone()
+                offset = torch.full((1,), 7, dtype=torch.int32, device=dev)
+                outs.append((fn(cum, words, states, offset), states, offset))
+            (ks, kx, ko), (ps, px, po) = outs
+            check(torch.equal(ks, ps) and torch.equal(kx, px)
+                  and torch.equal(ko, po),
+                  f"decode N={N} P={P}: kernel != plain version")
+            below = int((ks == -1).sum())
+            top = int((ks == P - 2).sum())
+            check(below > 0 and top > 0,
+                  f"N={N} P={P}: an edge of the search was not reached")
+            # a round trip through the encoder
+            sym = torch.randint(0, P - 1, (n,), generator=gen, device=dev)
+            lo = cum.gather(1, sym[:, None])[:, 0]
+            fr = cum.gather(1, sym[:, None] + 1)[:, 0] - lo
+            states = torch.full((N,), rans.RANS_L, dtype=torch.int64,
+                                device=dev)
+            cursor = torch.zeros((1,), dtype=torch.int32, device=dev)
+            buf = torch.zeros((n + N,), dtype=torch.int32, device=dev)
+            rans.rans_encode(lo.int(), fr.int(), states, cursor, buf)
+            total = int(cursor[0])
+            blob = rans.pack_stream_packed(buf[:total].cpu().numpy(),
+                                           states.cpu().numpy())
+            sn, wn = rans.unpack_stream(blob, N)
+            states = torch.from_numpy(sn.astype(np.int64)).to(dev)
+            offset = torch.zeros((1,), dtype=torch.int32, device=dev)
+            back = rans.rans_decode(cum, torch.from_numpy(wn).to(dev),
+                                    states, offset)
+            check(torch.equal(back, sym.int()) and int(offset[0]) == total,
+                  f"N={N} P={P}: round trip lost symbols")
+            cases += 1
+            print(f"kernel2 edge N={N} P={P} n={n}: identical symbols, "
+                  f"states, offset ({below} rows below cum[0], {top} at "
+                  f"or above cum[P-2]); round trip exact")
+    return cases
 
 
 def model_phase(codec, params, img):
@@ -320,6 +495,8 @@ def round_trip(codec, img, label: str):
     check(abs(gap) <= 1.0, f"{label}: coder closure gap {gap:+.3f}% > 1%")
     nbytes = len(blob)
     bpsp = Codec.num_bytes(streams) * 8 / img.size
+    print(f"{label}: container sha256 {hashlib.sha256(blob).hexdigest()}, "
+          f"{nbytes} bytes")
     print(f"{label}: lossless, {nbytes} bytes serialized, bpsp {bpsp:.4f}, "
           f"stream bits {act} vs ideal {ideal:.1f} ({gap:+.3f}%), "
           f"encode {1e3 * (t1 - t0):.2f} ms, decode {1e3 * (t3 - t2):.2f} "
@@ -373,10 +550,11 @@ def table_path(codec, img):
 
 def variants_phase(img, odd):
     """One round trip per coded configuration; returns the logistic
-    branch's launches over the logistic configurations' counted runs."""
+    branch's launches over the logistic configurations' counted runs and
+    those of the flagship's logistic twin (clrjnt 2) at 512x768."""
     t0 = time.perf_counter()
     trained = load_npz()
-    logistic_launches = 0
+    logistic_launches = per_trip = 0
     for label, kw, use_trained, also_odd in VARIANTS:
         cfg = ModelConfig(**kw)
         codec = Codec(cfg, trained if use_trained else init_params(cfg, 0),
@@ -392,38 +570,75 @@ def variants_phase(img, odd):
             check(k1.logistic_launches == (k1.launches if logistic else 0),
                   f"{label}: Kernel 1 ran the wrong branch")
             logistic_launches += k1.logistic_launches
+            if label == "clrjnt2 logistic" and im is img:
+                per_trip = k1.logistic_launches
         del codec
         torch.cuda.empty_cache()
     print(f"variants phase: {len(VARIANTS)} configurations in "
           f"{time.perf_counter() - t0:.2f} s")
-    return logistic_launches
+    return logistic_launches, per_trip
+
+
+def build_phase():
+    """Build the kernels; print and check ptxas's report, Kernel 1's
+    occupancy and the saturation shortcuts."""
+    t0 = time.perf_counter()
+    _kernels.lib()
+    print(f"kernels built (nvcc) and loaded in "
+          f"{time.perf_counter() - t0:.2f} s")
+    table = _kernels.ptxas_table()
+    check(len(table) > 0, "ptxas reported no kernel")
+    for r in table:
+        print(f"ptxas {r['kernel']}: {r['registers']} registers, "
+              f"{r['stack']} B stack frame, {r['spill_stores']} B spill "
+              f"stores, {r['spill_loads']} B spill loads")
+    k1 = [r for r in table if "cdf_pmap_kernel" in r["kernel"]]
+    check(len(k1) == 32, f"{len(k1)} Kernel 1 instances, expected 32")
+    check(all(r["stack"] == 0 and r["spill_stores"] == 0
+              and r["spill_loads"] == 0 for r in k1),
+          "a Kernel 1 instance has a stack frame or spills")
+    for M in (5, 10):
+        for logistic in (False, True):
+            blocks, threads = cdf.pmap_occupancy(M, logistic)
+            check(blocks > 0, "Kernel 1 cannot be resident")
+            print(f"kernel1 M={M} {'logistic' if logistic else 'normal'}: "
+                  f"{blocks} blocks of {threads} threads per SM")
+    bad = cdf.saturation_mismatches(torch.device("cuda"))
+    check(bad == 0, f"the saturation shortcut differs on {bad} inputs")
+    print("kernel1 saturation shortcut: equal to the full formula on all "
+          "2^32 floats")
 
 
 def main() -> None:
     print(card_line())
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
-    t0 = time.perf_counter()
-    _kernels.lib()
-    print(f"kernels built (nvcc) and loaded in "
-          f"{time.perf_counter() - t0:.2f} s")
+    build_phase()
 
     cfg = ModelConfig()
     params = load_npz()
-    codec = Codec(cfg, params, device="cuda", num_lanes=1024)
+    codec = Codec(cfg, params, num_lanes=1024)
+    check(codec.device.type == "cuda", "Codec did not default to the card")
     img = synthetic_image(512, 768, seed=42)
     kres = kernel_phase(codec, img)
+    print(f"kernel2 edge cases: {decode_edge_phase(codec.device)} tables "
+          "bit-identical")
     model_phase(codec, params, img)
 
     counters = (cdf.gmm_cdf_from_pmap, rans.rans_decode, rans.rans_encode)
     codec.decompress(codec.compress(img))  # warm-up
-    for fn in counters:
+    for fn in counters + (cdf.gmm_cdf_table_int32,):
         fn.launches = 0
     round_trip(codec, img, "512x768 flagship")
     launches = {fn.__name__: fn.launches for fn in counters}
     print(f"main path launches: {launches}")
     check(all(v > 0 for v in launches.values()),
           "a kernel of the main path was not launched")
+    # Kernel 4 lies on no codec path: its count over the round trip is 0
+    per_trip = dict(launches,
+                    gmm_cdf_table_int32=cdf.gmm_cdf_table_int32.launches)
+    check(per_trip["gmm_cdf_table_int32"] == 0,
+          "Kernel 4 was launched on the codec path")
     odd = synthetic_image(310, 598, seed=7)
     codec.decompress(codec.compress(odd))  # warm-up
     before = {fn.__name__: fn.launches for fn in counters}
@@ -435,17 +650,20 @@ def main() -> None:
     table_path(codec, img)
     launches["gmm_cdf_table_int32"] = cdf.gmm_cdf_table_int32.launches
     check(launches["gmm_cdf_table_int32"] > 0, "Kernel 4 was not launched")
-    launches["gmm_cdf_from_pmap_logistic"] = variants_phase(img, odd)
-    check(launches["gmm_cdf_from_pmap_logistic"] > 0,
-          "Kernel 1's logistic branch was not launched")
+    logistic, per_trip["gmm_cdf_from_pmap_logistic"] = variants_phase(img,
+                                                                      odd)
+    launches["gmm_cdf_from_pmap_logistic"] = logistic
+    check(logistic > 0, "Kernel 1's logistic branch was not launched")
     check("jax" not in sys.modules, "jax was imported")
+    check(not any(m.startswith("llicti_tpu") for m in sys.modules),
+          "the JAX package was imported")
 
     rows = [
         ("gmm_cdf_from_pmap", "llicti_torch/csrc/cdf_pmap.cu",
          "llicti_tpu/ops/cdf_pallas.py:134", "cdf"),
-        ("gmm_cdf_from_pmap_logistic", "llicti_torch/csrc/cdf_pmap.cu",
+        ("gmm_cdf_from_pmap_logistic", "llicti_torch/csrc/cdf_pmap_logistic.cu",
          "llicti_tpu/ops/cdf_pallas.py:134", "cdf_logistic"),
-        ("gmm_cdf_table_int32", "llicti_torch/csrc/cdf_pmap.cu",
+        ("gmm_cdf_table_int32", "llicti_torch/csrc/cdf_table.cu",
          "llicti_tpu/ops/cdf_pallas.py:192", "table"),
         ("rans_decode", "llicti_torch/csrc/rans.cu",
          "llicti_tpu/coder/rans_device.py:231", "decode"),
@@ -454,8 +672,11 @@ def main() -> None:
     ]
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": rep, "launches": launches[name],
+                "launches_per_round_trip": per_trip[name],
                 "max_abs_err": kres[key][0], "ms": kres[key][1],
-                "plain_ms": kres[key][2]} for name, src, rep, key in rows]
+                "plain_ms": kres[key][2], "bound_ms": kres[key][3],
+                "bound_by": kres[key][4], "library_ms": None}
+               for name, src, rep, key in rows]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,12 +5,13 @@ model, the integer colour/wavelet stages and the container format are
 PyTorch and numpy; the three hot loops of the codec are CUDA kernels
 written by hand under ``csrc/`` (the CDF table and the rANS decode and
 encode lane scans), each with a plain PyTorch version that runs on CPU
-tensors.  This package imports no JAX.
+tensors.  This package imports no JAX and nothing of ``llicti_tpu``: it
+keeps its own copies of the configuration and the synthetic images.
+``Codec`` runs on the CUDA card unless it is given ``device="cpu"``.
 """
-from llicti_tpu.config import ModelConfig
-from llicti_tpu.data.dataset import synthetic_image
-
 from .codec import Codec
+from .config import ModelConfig
+from .data import synthetic_image
 from .weights import load_npz, params_from_flax
 
 __all__ = ["Codec", "ModelConfig", "load_npz", "params_from_flax",

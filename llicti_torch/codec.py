@@ -33,10 +33,9 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from llicti_tpu.config import ModelConfig
-
 from .coder.rans import (RANS_L, pack_stream_packed, rans_decode,
                          rans_encode, unpack_stream)
+from .config import ModelConfig
 from .models.interpolator import seq_colours
 from .ops.cdf import gmm_cdf_from_pmap
 from .ops.color import (rgb_int_to_ycocg_r_int, rgb_int_to_ycocg_r_int_np,
@@ -286,6 +285,8 @@ class Codec:
     ``params``: the JAX package's Flax parameters as numpy arrays (nested,
     or flat as :func:`llicti_torch.weights.load_npz` or
     :func:`llicti_torch.weights.init_params` give them).
+    ``device`` is the CUDA card unless the caller asks for ``"cpu"``;
+    without a card, a CUDA codec raises rather than falling back.
     ``num_lanes`` (<= 1024) is an encoder/decoder-matched parameter: the
     container does not record it.  Codes what the JAX ``Codec`` codes on
     its device backend and raises ``NotImplementedError`` on the rest:
@@ -297,7 +298,7 @@ class Codec:
     deserialize = staticmethod(deserialize)
     num_bytes = staticmethod(num_bytes)
 
-    def __init__(self, cfg: ModelConfig, params, device="cpu",
+    def __init__(self, cfg: ModelConfig, params, device="cuda",
                  num_lanes: int = 512):
         refused = [why for bad, why in (
             (cfg.clrchs != 3, "clrchs < 3"),
@@ -317,6 +318,10 @@ class Codec:
         self.cfg = cfg
         self.device = torch.device(device)
         if self.device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "Codec runs on the CUDA card by default and none is "
+                    "available; pass device='cpu' for the plain versions")
             # encoder and decoder must run bit-identical convs
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False

@@ -18,8 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from llicti_tpu.config import ModelConfig
-
+from ..config import ModelConfig
 from ..ops.gdn import GDN1
 
 

@@ -12,8 +12,7 @@ from typing import List
 import torch
 from torch import nn
 
-from llicti_tpu.config import ModelConfig
-
+from ..config import ModelConfig
 from .interpolator import Interpolator
 
 

@@ -4,9 +4,10 @@ Kernel 1 ports ``llicti_tpu/ops/cdf_pallas.py:gmm_cdf_from_pmap_pallas``
 (normal and logistic mixtures, the codec's table + the encoder's (start,
 freq)); Kernel 4 ports ``gmm_cdf_table_int32_pallas`` (normal mixtures,
 pre-sliced parameters, the table alone).  :func:`gmm_cdf_from_pmap` and
-:func:`gmm_cdf_table_int32` run ``csrc/cdf_pmap.cu`` on CUDA tensors; the
-``*_plain`` versions, the same computations in plain PyTorch, run on CPU
-tensors.  Kernel and plain version agree within one quantisation step:
+:func:`gmm_cdf_table_int32` run ``csrc/cdf_pmap.cu`` and
+``csrc/cdf_table.cu`` (device code in ``csrc/cdf.cuh``) on CUDA tensors;
+the ``*_plain`` versions, the same computations in plain PyTorch, run on
+CPU tensors.  Kernel and plain version agree within one quantisation step:
 they evaluate ``exp`` with different libraries.  Encoder and decoder
 always share one of them, so each side's tables are identical.
 """
@@ -236,3 +237,22 @@ def gmm_cdf_table_int32(points: torch.Tensor, stdevs: torch.Tensor,
 
 
 gmm_cdf_table_int32.launches = 0
+
+
+def saturation_mismatches(device) -> int:
+    """Float inputs, of all 2^32, on which the kernels' shortcut for a
+    saturated normal mixture term (Phi exactly 0 or 1) differs from the full
+    formula on the card ``device``; 0 for the kernels to be exact."""
+    bad = torch.zeros((1,), dtype=torch.int64, device=device)
+    _kernels.check(_kernels.lib().llicti_cdf_check_saturation(
+        bad.data_ptr(), _kernels.stream_ptr(bad.device)),
+        "llicti_cdf_check_saturation")
+    return int(bad[0])
+
+
+def pmap_occupancy(M: int, logistic: bool) -> Tuple[int, int]:
+    """(resident blocks per SM, threads per block) of Kernel 1 at ``M``."""
+    threads = ctypes.c_int(0)
+    blocks = _kernels.lib().llicti_cdf_pmap_occupancy(
+        M, int(logistic), ctypes.addressof(threads))
+    return blocks, threads.value

@@ -20,8 +20,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from llicti_tpu.config import ModelConfig
-
+from .config import ModelConfig
 from .models.llicti import LLICTIModel
 from .ops.gdn import GDN1, gdn_init
 

@@ -51,7 +51,7 @@ def codecs():
     params = JaxModel(cfg=cfg).init(jax.random.PRNGKey(0),
                                     jnp.zeros((1, 16, 16, 3)))
     np_params = jax.tree.map(np.asarray, params)
-    return (Codec(cfg, np_params, num_lanes=32),
+    return (Codec(cfg, np_params, num_lanes=32, device="cpu"),
             JaxCodec(cfg, params, num_lanes=32, use_pallas_cdf=True))
 
 
@@ -81,7 +81,7 @@ def test_roundtrip_and_container_match_jax(codecs, h, w):
 
 def test_flagship_crop_roundtrip():
     """Trained flagship weights from the committed .npz on a 64x96 crop."""
-    codec = Codec(ModelConfig(), load_npz(), num_lanes=128)
+    codec = Codec(ModelConfig(), load_npz(), num_lanes=128, device="cpu")
     img = np.ascontiguousarray(synthetic_image(512, 768, seed=42)[:64, :96])
     streams = codec.compress(img)
     out = codec.decompress(streams, xorg=img)
@@ -129,13 +129,13 @@ def test_codec_refuses_what_jax_refuses(kw):
     with pytest.raises(AssertionError):
         JaxCodec(cfg, {}, num_lanes=32)
     with pytest.raises(NotImplementedError):
-        Codec(cfg, {}, num_lanes=32)
+        Codec(cfg, {}, num_lanes=32, device="cpu")
 
 
 @pytest.mark.parametrize("kw", CHIP_VARIANTS)
 def test_variant_roundtrip(kw):
     cfg = small_cfg(**kw)
-    codec = Codec(cfg, init_params(cfg, seed=0), num_lanes=32)
+    codec = Codec(cfg, init_params(cfg, seed=0), num_lanes=32, device="cpu")
     assert_lossless(codec, synthetic_image(33, 37, seed=3))
     act = sum(sum(r) for r in codec.last_slice_bits)
     ideal = sum(sum(r) for r in codec.last_ideal_bits)
@@ -153,7 +153,8 @@ def test_variant_container_matches_jax(kw):
     cfg = small_cfg(**kw)
     params = JaxModel(cfg=cfg).init(jax.random.PRNGKey(1),
                                     jnp.zeros((1, 16, 16, 3)))
-    port = Codec(cfg, jax.tree.map(np.asarray, params), num_lanes=32)
+    port = Codec(cfg, jax.tree.map(np.asarray, params), num_lanes=32,
+                 device="cpu")
     ref = JaxCodec(cfg, params, num_lanes=32, use_pallas_cdf=True)
     img = synthetic_image(33, 37, seed=11)
     streams = assert_lossless(port, img)

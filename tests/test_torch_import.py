@@ -1,17 +1,19 @@
-"""The port runs without JAX: a subprocess that refuses every import of
-jax, flax and orbax imports llicti_torch and runs a CPU round trip, and no
-module of the port (nor chip_smoke.py) imports them or the JAX package's
-JAX-bound modules."""
+"""The port runs without JAX and without the JAX package: a subprocess
+that refuses every import of jax, flax, orbax and llicti_tpu imports
+llicti_torch and runs a CPU round trip, and no module of the port (nor
+chip_smoke.py) imports any of them."""
 import ast
 import os
 import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 ROOT = Path(__file__).resolve().parent.parent
 BLOCKED = ("jax", "jaxlib", "flax", "orbax")
-# the only modules of the JAX package the port may use: both JAX-free
-ALLOWED_TPU = ("llicti_tpu.config", "llicti_tpu.data.dataset")
+# modules of the JAX package the port may use: none, not even JAX-free ones
+ALLOWED_TPU = ()
 
 _CHILD = r"""
 import sys
@@ -48,7 +50,7 @@ for m, bands in enumerate(LLICTIModel(cfg).models):
                 params[key + "/Conv_0/kernel"] = (
                     mod.weight.detach().numpy().transpose(2, 3, 1, 0))
                 params[key + "/Conv_0/bias"] = mod.bias.detach().numpy()
-codec = Codec(cfg, params, num_lanes=16)
+codec = Codec(cfg, params, num_lanes=16, device="cpu")
 img = np.random.default_rng(0).integers(0, 256, (21, 18, 3), dtype=np.uint8)
 out = codec.decompress(codec.compress(img))
 assert np.array_equal(out[0], img)
@@ -59,7 +61,8 @@ print("OK")
 
 def test_port_runs_with_jax_blocked():
     env = dict(os.environ, PYTHONPATH=str(ROOT))
-    res = subprocess.run([sys.executable, "-c", _CHILD % (BLOCKED,)],
+    res = subprocess.run([sys.executable, "-c",
+                          _CHILD % (BLOCKED + ("llicti_tpu",),)],
                          cwd=ROOT, env=env, capture_output=True, text=True,
                          timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
@@ -87,5 +90,16 @@ def test_static_scan_finds_no_jax_import():
             assert top not in BLOCKED, f"{path}: imports {mod}"
             if top == "llicti_tpu":
                 assert mod in ALLOWED_TPU, f"{path}: imports {mod}"
-    assert not any(mod.startswith("llicti_tpu")
-                   for mod in _imports(ROOT / "chip_smoke.py"))
+
+
+def test_codec_defaults_to_the_card():
+    """Without ``device``, Codec runs on CUDA; with no card it raises."""
+    import torch
+
+    from llicti_torch import Codec, ModelConfig
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default codec would run")
+    cfg = ModelConfig(chs=(4, 4), evens=(4, 4), odds=(3, 3),
+                      dwtlevels=(0, 1), useprevlevNN=(False, True))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Codec(cfg, {}, num_lanes=16)

@@ -1,0 +1,115 @@
+#!/usr/bin/env python3
+"""Round-trip times, container hash and a device profile of the port.
+
+Usage: python3 tools/profile_torch_codec.py [--tree DIR] [--runs 15]
+                                            [--no-profile]
+
+Imports ``llicti_torch`` from ``DIR`` (default: this repository; give an
+unpacked older tree to compare two versions in one run) and round-trips
+``synthetic_image(512, 768, seed=42)`` with the trained flagship weights
+and 1024 lanes on the CUDA card: prints the container's sha256, size and
+bpsp, the encode and decode times of ``--runs`` round trips (host clock
+around work that ends in ``torch.cuda.synchronize()``, after one warm-up;
+min / median / max), and, unless ``--no-profile``, one ``torch.profiler``
+run of each direction: wall time, device busy time (the union of the
+kernels' intervals), idle share, and device time and launches per kernel
+group (convs, Kernel 1, 2, 3, other).  The last line is the card's name and
+power limit.
+"""
+from __future__ import annotations
+
+import argparse
+import hashlib
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+GROUPS = (("Kernel 1 (CDF)", ("cdf_pmap_kernel",)),
+          ("Kernel 2 (rANS decode)", ("rans_decode_kernel",)),
+          ("Kernel 3 (rANS encode)", ("rans_encode_kernel",)),
+          ("convs (cuDNN)", ("conv", "sgemm", "gemm", "implicit")))
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def profile(fn, label: str) -> None:
+    from torch.profiler import ProfilerActivity, profile as prof_ctx
+    torch.cuda.synchronize()
+    with prof_ctx(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        _, wall = timed(fn)
+    spans, groups = [], {name: [0.0, 0] for name, _ in GROUPS}
+    groups["other"] = [0.0, 0]
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        spans.append((ev.time_range.start, ev.time_range.end))
+        name = ev.name.lower()
+        key = next((g for g, keys in GROUPS
+                    if any(k in name for k in keys)), "other")
+        groups[key][0] += (ev.time_range.end - ev.time_range.start) / 1e3
+        groups[key][1] += 1
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):  # union of the kernels' intervals
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    busy /= 1e3
+    print(f"profile {label}: wall {wall:.2f} ms, device busy {busy:.2f} ms, "
+          f"idle share {1 - busy / wall:.3f}")
+    for key, (ms, count) in groups.items():
+        print(f"profile {label}: {key}: {ms:.3f} ms, {count} kernels")
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    ap.add_argument("--runs", type=int, default=15)
+    ap.add_argument("--no-profile", action="store_true")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_torch_codec: CUDA is not available")
+    sys.path.insert(0, os.path.abspath(args.tree))
+    from llicti_torch import Codec, ModelConfig, load_npz, synthetic_image
+
+    codec = Codec(ModelConfig(), load_npz(), device="cuda", num_lanes=1024)
+    img = synthetic_image(512, 768, seed=42)
+    blob = Codec.serialize(codec.compress(img))
+    back = codec.decompress(Codec.deserialize(blob))
+    if not (back[0] == img).all():
+        raise SystemExit("profile_torch_codec: round trip is lossy")
+    bpsp = Codec.num_bytes(Codec.deserialize(blob)) * 8 / img.size
+    print(f"tree {args.tree}: container sha256 "
+          f"{hashlib.sha256(blob).hexdigest()}, {len(blob)} bytes, bpsp "
+          f"{bpsp:.4f}")
+    enc, dec = [], []
+    for _ in range(args.runs):
+        streams, ms = timed(lambda: codec.compress(img))
+        enc.append(ms)
+        _, ms = timed(lambda: codec.decompress(streams))
+        dec.append(ms)
+    for label, xs in (("encode", enc), ("decode", dec)):
+        print(f"{label} ms over {args.runs} round trips: min {min(xs):.2f}, "
+              f"median {statistics.median(xs):.2f}, max {max(xs):.2f}")
+    if not args.no_profile:
+        profile(lambda: codec.compress(img), "encode")
+        streams = codec.compress(img)
+        profile(lambda: codec.decompress(streams), "decode")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip())
+
+
+if __name__ == "__main__":
+    main()
