@@ -7,25 +7,32 @@ Phases, each of which raises on failure:
   1. print the card (nvidia-smi name and power limit); require CUDA;
   2. build the CUDA kernels from llicti_torch/csrc, print the build time,
      ptxas's registers / stack frame / spills of every kernel (Kernel 1's
-     instances must have no stack frame and no spills) and Kernel 1's
+     instances must have no stack frame and no spills, Kernel 3's two
+     kernels no spills) and Kernel 1's
      occupancy; check the normal mixture term's saturation shortcut
      against the full formula on every float;
   3. hold each kernel against its plain PyTorch version on the card at the
      main path's shapes (the finest band of a 512x768 image, 1024 lanes),
      and time both: Kernel 1 in its normal and logistic branches, Kernel 4
      (gmm_cdf_table_int32) on gmm_slice_params of the same parameter map,
-     the rANS decode and encode; each kernel's bound (bytes over 3.35 TB/s
-     or float operations over 67 TFLOP/s, the H100 SXM's published peaks)
-     is computed from the inputs timed;
+     the rANS decode, and the rANS encode on the finest Y slice alone and
+     on the image's whole 45-slice chain (Codec.encode_inputs) in one
+     call; each kernel's bound (bytes over 3.35 TB/s or float operations
+     over 67 TFLOP/s, the H100 SXM's published peaks) is computed from the
+     inputs timed;
   3b. the rANS decode against its plain version on synthetic tables of
      P = 2 ... 513 with rows below cum[0] and at or above cum[P-2], n not a
      multiple of N, N = 1000 and 1024: random states and words, and a round
      trip through the encoder;
+  3c. the rANS encode chain against its plain version on chains of mixed
+     slice sizes (empty, shorter than N, not a multiple of N, masked
+     padding) at N = 1, 33, 1000, 1024, with freq 1, freq near 2^16 and
+     carried states 2^16 and 2^32 - 1, each decoded back by Kernel 2;
   4. check the CUDA model against the CPU one on a small crop;
   5. the main path: Codec.compress -> serialize -> deserialize ->
      decompress of synthetic_image(512, 768, seed=42) with the trained
-     flagship weights, byte-exact, with every kernel's launch count > 0;
-     prints the container's sha256 and size;
+     flagship weights, byte-exact, with every kernel's launch count > 0
+     (the encode's at most 2); prints the container's sha256 and size;
   6. the same round trip on a 310x598 image (odd sizes, pad flags);
   7. Kernel 4's path (it lies on no codec path, in this package or the JAX
      one): tables of the finest band from gmm_slice_params, rANS-encoded
@@ -111,12 +118,15 @@ def card_line() -> str:
 
 def cuda_ms(fn, iters: int, setup=None) -> float:
     """Mean milliseconds of fn(*setup(i)) over ``iters`` runs, by CUDA
-    events around the whole loop (after one warm-up)."""
+    events around the whole loop (after one warm-up).  The loop is queued
+    behind a ~10 ms device-side wait, so that a wrapper's host work does
+    not show in a kernel's time."""
     args = [setup(i) if setup else () for i in range(iters + 1)]
     fn(*args[0])
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
     t0.record()
     for i in range(1, iters + 1):
         fn(*args[i])
@@ -271,14 +281,13 @@ def kernel_phase(codec, img):
     results["table"] = summary(k4, [table_case(0, -127, 128)[0],
                                     table_case(1, -256, 255)[0]])
 
-    # Kernel 3: encode the three slices (reverse order), kernel vs plain
+    # Kernel 3: encode the three slices (reverse order) one call each,
+    # kernel vs plain
     N = codec.N
     cap = 3 * n + N
 
     def enc(fn):
-        states = torch.full((N,), rans.RANS_L, dtype=torch.int64, device=dev)
-        cursor = torch.zeros((1,), dtype=torch.int32, device=dev)
-        buf = torch.zeros((cap,), dtype=torch.int32, device=dev)
+        states, cursor, buf = fresh_carry(N, cap, dev)
         for st, fr in reversed(sf):
             fn(st, fr, states, cursor, buf)
         return states, cursor, buf
@@ -296,9 +305,7 @@ def kernel_phase(codec, img):
     st0, fr0 = sf[0]
 
     def fresh_enc(_):
-        return (torch.full((N,), rans.RANS_L, dtype=torch.int64, device=dev),
-                torch.zeros((1,), dtype=torch.int32, device=dev),
-                torch.zeros((cap,), dtype=torch.int32, device=dev))
+        return fresh_carry(N, cap, dev)
 
     s, c, b = fresh_enc(0)
     rans.rans_encode(st0, fr0, s, c, b)
@@ -310,9 +317,12 @@ def kernel_phase(codec, img):
         fresh_enc)
     # (start, freq) read, words written, states read and written
     bnd = bound(8 * n + 4 * words0 + 16 * N, 0)
-    results["encode"] = (enc_err, enc_ms, enc_plain) + bnd
-    print(f"kernel3 encode, Y slice: kernel {enc_ms:.5f} ms, plain "
-          f"{enc_plain:.5f} ms, bound {bnd[0]:.5f} ms ({bnd[1]})")
+    results["encode_slice"] = (enc_err, enc_ms, enc_plain) + bnd
+    steps = -(-n // N)
+    print(f"kernel3 encode, Y slice alone (a chain of one): kernel "
+          f"{enc_ms:.5f} ms ({1e6 * enc_ms / steps:.1f} ns per step of "
+          f"{steps}), plain {enc_plain:.5f} ms, bound {bnd[0]:.5f} ms "
+          f"({bnd[1]})")
 
     # Kernel 2: decode the blob, kernel vs plain; symbols must round-trip
     states_np, words_np = rans.unpack_stream(blob, N)
@@ -360,6 +370,124 @@ def kernel_phase(codec, img):
           f"({1e3 * dec_ms / steps:.3f} us per step of {steps}), plain "
           f"{dec_plain:.5f} ms, bound {bnd[0]:.5f} ms ({bnd[1]})")
     return results
+
+
+def fresh_carry(N: int, cap: int, dev, x0=None):
+    """(states, cursor, buf) of an encode that starts from ``x0`` (int64
+    [N]; 2^16 in every lane if None), cursor 0 and an empty buffer."""
+    states = (torch.full((N,), rans.RANS_L, dtype=torch.int64, device=dev)
+              if x0 is None else x0.clone())
+    return (states, torch.zeros((1,), dtype=torch.int32, device=dev),
+            torch.zeros((cap,), dtype=torch.int32, device=dev))
+
+
+def chain_outputs(starts, freqs, offsets, carry):
+    """Kernel 3 and rans_encode_chain_plain on the same chain from copies
+    of one carry: ((cursors, states, cursor, buf) of each), max |d|."""
+    outs = []
+    for fn in (rans.rans_encode_chain, rans.rans_encode_chain_plain):
+        s, c, b = (t.clone() for t in carry)
+        outs.append((fn(starts, freqs, offsets, s, c, b), s, c, b))
+    torch.cuda.synchronize()
+    err = max(max_abs(k, p) for k, p in zip(*outs))
+    return outs[0], err
+
+
+def chain_phase(codec, img):
+    """Kernel 3 on the main path's chain: the 45 slices of ``img`` in one
+    call, against rans_encode_chain_plain; timed as a whole chain.
+    Returns ((max |d|, ms, plain ms, bound ms, bound_by), steps)."""
+    dev, N = codec.device, codec.N
+    sf, cap, _ = codec.encode_inputs(img)
+    starts = torch.cat([st for st, _ in reversed(sf)])
+    freqs = torch.cat([fr for _, fr in reversed(sf)])
+    sizes = [fr.shape[0] for _, fr in reversed(sf)]
+    offsets = torch.tensor(np.cumsum([0] + sizes), dtype=torch.int64)
+    (cursors, _, cursor, _), err = chain_outputs(
+        starts, freqs, offsets, fresh_carry(N, cap, dev))
+    check(err == 0, "Kernel 3 chain != rans_encode_chain_plain (words, "
+          "per-slice cursors or states)")
+    total = int(cursor[0])
+    check(total <= cap and int(cursors[-1]) == total, "chain cursors")
+
+    def run(s, c, b):
+        rans.rans_encode_chain(starts, freqs, offsets, s, c, b)
+
+    ms = cuda_ms(run, 20, lambda _: fresh_carry(N, cap, dev))
+    plain_ms = cuda_ms(lambda s, c, b: rans.rans_encode_chain_plain(
+        starts, freqs, offsets, s, c, b), 1,
+        lambda _: fresh_carry(N, cap, dev))
+    steps = sum(-(-n // N) for n in sizes)
+    # (start, freq) read, words written, states read and written
+    bnd = bound(8 * starts.numel() + 4 * total + 16 * N, 0)
+    print(f"kernel3 encode chain: {len(sizes)} slices, {starts.numel()} "
+          f"symbols, N={N}, {steps} steps -> {total} words; identical "
+          f"words, per-slice cursors and states; kernel {ms:.5f} ms "
+          f"({1e6 * ms / steps:.1f} ns per step), plain {plain_ms:.5f} ms, "
+          f"bound {bnd[0]:.5f} ms ({bnd[1]})")
+    return (err, ms, plain_ms) + bnd, steps
+
+
+def encode_edge_phase(dev):
+    """Kernel 3 against rans_encode_chain_plain on chains of mixed slice
+    sizes (n = 0, n < N, n not a multiple of N, all-masked slices, masked
+    padding) at N = 1, 33, 1000, 1024; freq 1 and freq near 2^16 (tables
+    of P = 4 with unit rows, P = 2), carried states at 2^16 and 2^32 - 1.
+    Each chain round-trips through Kernel 2.  Returns the chain count."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    for N in (1, 33, 1000, 1024):
+        # (symbols, masked entries after them) per slice, decode order
+        sizes = [(0, 0), (1, 0), (N - 1, 0), (3 * N + 7, 0), (N, 0),
+                 (0, N + 3), (2 * N + N // 2, 5), (5, 2 * N)]
+        tables, syms, st_fr = [], [], []
+        for k, (n, pad) in enumerate(sizes):
+            P = (2, 4, 33, 257)[k % 4]
+            cum = synthetic_tables(gen, n, P, dev)
+            sym = torch.randint(0, P - 1, (n,), generator=gen, device=dev)
+            if P in (2, 4):  # every third symbol: freq 65535, or 1
+                cum[::3] = torch.tensor([[1, 65536], [1, 2, 3, 65536]][P // 4],
+                                        dtype=torch.int32, device=dev)
+                sym[::3] = 0
+            lo = cum.gather(1, sym[:, None])[:, 0]
+            fr = cum.gather(1, sym[:, None] + 1)[:, 0] - lo
+            masked = torch.randint(0, 1 << 16, (pad,), generator=gen,
+                                   device=dev)
+            st_fr.append((torch.cat([lo, masked]).int(),
+                          torch.cat([fr, torch.zeros_like(masked)]).int()))
+            tables.append(cum)
+            syms.append(sym.int())
+        starts = torch.cat([st for st, _ in reversed(st_fr)])
+        freqs = torch.cat([fr for _, fr in reversed(st_fr)])
+        check(bool((freqs == 1).any() and (freqs >= 65533).any()
+                   and (freqs == 0).any()), f"N={N}: an edge freq is missing")
+        offsets = torch.tensor(np.cumsum(
+            [0] + [fr.shape[0] for _, fr in reversed(st_fr)]),
+            dtype=torch.int64)
+        x0 = torch.randint(1 << 16, 1 << 32, (N,), generator=gen, device=dev)
+        x0[::2] = 1 << 16
+        x0[1::3] = (1 << 32) - 1
+        cap = freqs.numel() + N
+        (cursors, states, cursor, buf), err = chain_outputs(
+            starts, freqs, offsets, fresh_carry(N, cap, dev, x0))
+        check(err == 0, f"encode N={N}: Kernel 3 != rans_encode_chain_plain")
+        total = int(cursor[0])
+        blob = rans.pack_stream_packed(buf[:total].cpu().numpy(),
+                                       states.cpu().numpy())
+        sn, wn = rans.unpack_stream(blob, N)
+        states = torch.from_numpy(sn.astype(np.int64)).to(dev)
+        offset = torch.zeros((1,), dtype=torch.int32, device=dev)
+        words = torch.from_numpy(wn).to(dev)
+        for cum, sym in zip(tables, syms):
+            check(torch.equal(rans.rans_decode(cum, words, states, offset),
+                              sym), f"N={N}: Kernel 2 lost symbols")
+        check(int(offset[0]) == total and torch.equal(states, x0),
+              f"N={N}: the decode did not return to the carried states")
+        print(f"kernel3 edge N={N}: (symbols, masked) per slice in decode "
+              f"order {sizes} -> {total} words, cursors in encode order "
+              f"{cursors.tolist()}; identical to the plain version; Kernel 2 "
+              "decodes every symbol back to the carried states")
+    return 4
 
 
 def synthetic_tables(gen, n: int, P: int, dev):
@@ -597,6 +725,10 @@ def build_phase():
     check(all(r["stack"] == 0 and r["spill_stores"] == 0
               and r["spill_loads"] == 0 for r in k1),
           "a Kernel 1 instance has a stack frame or spills")
+    k3 = [r for r in table if "rans_encode" in r["kernel"]]
+    check(len(k3) == 2, f"{len(k3)} Kernel 3 kernels, expected 2")
+    check(all(r["spill_stores"] == 0 and r["spill_loads"] == 0 for r in k3),
+          "a Kernel 3 kernel spills")
     for M in (5, 10):
         for logistic in (False, True):
             blocks, threads = cdf.pmap_occupancy(M, logistic)
@@ -621,19 +753,26 @@ def main() -> None:
     check(codec.device.type == "cuda", "Codec did not default to the card")
     img = synthetic_image(512, 768, seed=42)
     kres = kernel_phase(codec, img)
+    kres["encode"], steps = chain_phase(codec, img)
     print(f"kernel2 edge cases: {decode_edge_phase(codec.device)} tables "
           "bit-identical")
+    print(f"kernel3 edge cases: {encode_edge_phase(codec.device)} chains "
+          "bit-identical and round-tripped")
     model_phase(codec, params, img)
 
-    counters = (cdf.gmm_cdf_from_pmap, rans.rans_decode, rans.rans_encode)
+    counters = {"gmm_cdf_from_pmap": cdf.gmm_cdf_from_pmap,
+                "rans_decode": rans.rans_decode,
+                "rans_encode": rans.rans_encode_chain}
     codec.decompress(codec.compress(img))  # warm-up
-    for fn in counters + (cdf.gmm_cdf_table_int32,):
+    for fn in list(counters.values()) + [cdf.gmm_cdf_table_int32]:
         fn.launches = 0
     round_trip(codec, img, "512x768 flagship")
-    launches = {fn.__name__: fn.launches for fn in counters}
+    launches = {name: fn.launches for name, fn in counters.items()}
     print(f"main path launches: {launches}")
     check(all(v > 0 for v in launches.values()),
           "a kernel of the main path was not launched")
+    check(launches["rans_encode"] <= 2,
+          f"Kernel 3 made {launches['rans_encode']} launches in one encode")
     # Kernel 4 lies on no codec path: its count over the round trip is 0
     per_trip = dict(launches,
                     gmm_cdf_table_int32=cdf.gmm_cdf_table_int32.launches)
@@ -641,9 +780,9 @@ def main() -> None:
           "Kernel 4 was launched on the codec path")
     odd = synthetic_image(310, 598, seed=7)
     codec.decompress(codec.compress(odd))  # warm-up
-    before = {fn.__name__: fn.launches for fn in counters}
+    before = {name: fn.launches for name, fn in counters.items()}
     round_trip(codec, odd, "310x598")
-    check(all(fn.launches > before[fn.__name__] for fn in counters),
+    check(all(fn.launches > before[name] for name, fn in counters.items()),
           "310x598 round trip skipped a kernel")
 
     cdf.gmm_cdf_table_int32.launches = 0
@@ -677,6 +816,10 @@ def main() -> None:
                 "plain_ms": kres[key][2], "bound_ms": kres[key][3],
                 "bound_by": kres[key][4], "library_ms": None}
                for name, src, rep, key in rows]
+    # Kernel 3's row is the whole 45-slice chain; beside it its steps and
+    # the finest Y slice encoded alone
+    kernels[-1].update(steps=steps, y_slice_ms=kres["encode_slice"][1],
+                       y_slice_bound_ms=kres["encode_slice"][3])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

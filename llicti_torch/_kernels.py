@@ -51,8 +51,12 @@ _SIGNATURES = {
     "llicti_cdf_check_saturation": [_P, _P],
     # cum, words, n_words, states, offset, syms, n, P, N, stream
     "llicti_rans_decode": [_P, _P, _L, _P, _P, _P, _I, _I, _I, _P],
-    # starts, freqs, states, cursor, buf, cap, n, N, stream
-    "llicti_rans_encode": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # starts, freqs, plan (host), n_slices, steps, states, cursor, buf,
+    # cap, cursors, scratch, N, stream
+    "llicti_rans_encode_chain": [_P, _P, _P, _I, _L, _P, _P, _P, _I, _P,
+                                 _P, _I, _P],
+    # steps, N, scratch int32 words (out)
+    "llicti_rans_encode_scratch": [_L, _I, _P],
 }
 
 

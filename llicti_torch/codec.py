@@ -9,10 +9,11 @@ Per scale, coarse to fine, and per band, one shared function
 far and, for each of the three colours, builds the quantised CDF table
 (Kernel 1) and either collects the encoder's (start, freq) or
 rANS-decodes the band (Kernel 2) and writes it back.  The encoder then
-chains all 45 slices through the rANS encoder (Kernel 3) in reverse
-decode order into one stream.  clr_joint_mode 1 codes a zero channel in
-front of (Y, Co, Cg); with clrjnt0seqmd the trunk runs once per colour
-on the band's layer-0 map plus the pixel's colours decoded so far.
+encodes all 45 slices, in reverse decode order, into one stream with one
+chain call of the rANS encoder (Kernel 3).  clr_joint_mode 1 codes a
+zero channel in front of (Y, Co, Cg); with clrjnt0seqmd the trunk runs
+once per colour on the band's layer-0 map plus the pixel's colours
+decoded so far.
 
 Bit-exactness: encoder and decoder must compute identical CDF tables.
 Both run the same convs on conditioning tensors of identical shape,
@@ -34,7 +35,7 @@ import numpy as np
 import torch
 
 from .coder.rans import (RANS_L, pack_stream_packed, rans_decode,
-                         rans_encode, unpack_stream)
+                         rans_encode_chain, unpack_stream)
 from .config import ModelConfig
 from .models.interpolator import seq_colours
 from .ops.cdf import gmm_cdf_from_pmap
@@ -395,6 +396,46 @@ class Codec:
     @torch.inference_mode()
     def compress(self, rgb: np.ndarray) -> List[List[bytes]]:
         """Encode one image: rgb ``[H, W, 3]`` or ``[1, H, W, 3]`` uint8."""
+        sf, cap, header = self.encode_inputs(rgb)
+        S = self.cfg.num_scales
+        # one chain, slices in encode order (the reverse of decode order)
+        starts = torch.cat([start for start, _ in reversed(sf)])
+        freqs = torch.cat([freq for _, freq in reversed(sf)])
+        offsets = torch.tensor(
+            np.cumsum([0] + [freq.shape[0] for _, freq in reversed(sf)]),
+            dtype=torch.int64)
+        states = torch.full((self.N,), RANS_L, dtype=torch.int64,
+                            device=self.device)
+        cursor = torch.zeros((1,), dtype=torch.int32, device=self.device)
+        buf = torch.zeros((cap,), dtype=torch.int32, device=self.device)
+        cursors = rans_encode_chain(starts, freqs, offsets, states, cursor,
+                                    buf)
+        ideal = torch.stack([
+            torch.where(freq > 0, 16.0 - torch.log2(
+                freq.clamp(min=1).float()), 0.0).sum()
+            for _, freq in sf])
+
+        cursors_np = cursors.cpu().numpy().astype(np.int64)
+        total = int(cursors_np[-1])
+        if total > cap:
+            raise RuntimeError(f"rANS stream of {total} words overran its "
+                               f"{cap}-word buffer")
+        blob = pack_stream_packed(buf[:total].cpu().numpy(),
+                                  states.cpu().numpy())
+        counts = np.diff(np.concatenate([[0], cursors_np]))[::-1]
+        self.last_slice_bits = [[int(v) * 16 for v in counts[s * 9:s * 9 + 9]]
+                                for s in range(S)]
+        ideal_np = ideal.cpu().numpy()
+        self.last_ideal_bits = [[float(v) for v in ideal_np[s * 9:s * 9 + 9]]
+                                for s in range(S)]
+        head_words = sum(sum(row) for row in self.last_slice_bits[:-1]) // 16
+        return [header_group(*header, head_words), [blob]]
+
+    @torch.inference_mode()
+    def encode_inputs(self, rgb: np.ndarray):
+        """The encoder's rANS inputs of one image, before any is encoded:
+        (the (start, freq) int32 pair of every slice in decode order, the
+        stream's word cap, the header fields but ``head_words``)."""
         cfg = self.cfg
         rgb = np.asarray(rgb)
         if rgb.ndim == 3:
@@ -425,36 +466,8 @@ class Codec:
                                  pts3)
         last_h, last_w = y_list[S - 1].shape[1], y_list[S - 1].shape[2]
         cap = words_cap(self.N, S, last_h, last_w, pad_flags)
-
-        states = torch.full((self.N,), RANS_L, dtype=torch.int64,
-                            device=self.device)
-        cursor = torch.zeros((1,), dtype=torch.int32, device=self.device)
-        buf = torch.zeros((cap,), dtype=torch.int32, device=self.device)
-        cursors = []
-        for start, freq in reversed(sf):
-            rans_encode(start, freq, states, cursor, buf)
-            cursors.append(cursor.clone())
-        ideal = torch.stack([
-            torch.where(freq > 0, 16.0 - torch.log2(
-                freq.clamp(min=1).float()), 0.0).sum()
-            for _, freq in sf])
-
-        cursors_np = torch.cat(cursors).cpu().numpy().astype(np.int64)
-        total = int(cursors_np[-1])
-        if total > cap:
-            raise RuntimeError(f"rANS stream of {total} words overran its "
-                               f"{cap}-word buffer")
-        blob = pack_stream_packed(buf[:total].cpu().numpy(),
-                                  states.cpu().numpy())
-        counts = np.diff(np.concatenate([[0], cursors_np]))[::-1]
-        self.last_slice_bits = [[int(v) * 16 for v in counts[s * 9:s * 9 + 9]]
-                                for s in range(S)]
-        ideal_np = ideal.cpu().numpy()
-        self.last_ideal_bits = [[float(v) for v in ideal_np[s * 9:s * 9 + 9]]
-                                for s in range(S)]
-        head_words = sum(sum(row) for row in self.last_slice_bits[:-1]) // 16
-        return [header_group(S, last_h, last_w, H, W, minmax, pad_int,
-                             raw.tobytes(), head_words), [blob]]
+        return sf, cap, (S, last_h, last_w, H, W, minmax, pad_int,
+                         raw.tobytes())
 
     # ---- decode ----------------------------------------------------------
     @torch.inference_mode()

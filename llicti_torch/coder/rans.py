@@ -1,6 +1,6 @@
-"""Kernels 2 and 3: N-lane interleaved rANS decode and encode of one slice.
+"""Kernels 2 and 3: N-lane interleaved rANS decode and encode.
 
-Port of ``llicti_tpu/coder/rans_device.py:41-42,142-197,231-294,316-350``.
+Port of ``llicti_tpu/coder/rans_device.py:41-42,142-228,231-294,316-350``.
 Coder: uint32 lane states in [2^16, 2^32), 16-bit probabilities, N lanes
 sharing one stream of 16-bit words.  Symbol i of a slice belongs to step
 i // N and lane i % N; the decoder walks steps forward and refills lanes
@@ -8,15 +8,18 @@ in order 0..N-1, the encoder walks steps backward and emits in lane order
 N-1..0.  Slices chain through the same lane states and stream, so an
 image carries one N*4-byte state flush.
 
-:func:`rans_decode` and :func:`rans_encode` launch ``csrc/rans.cu`` on
-CUDA tensors and run the plain versions on CPU tensors.  The plain
-versions loop over steps in Python with int64 tensors masked to 32 bits
-(torch's uint32 has too few ops).  Both update the carried state tensors
-in place: ``states`` int64 ``[N]`` holding uint32 values, ``offset`` /
-``cursor`` int32 ``[1]``.
+:func:`rans_decode` decodes one slice (one launch);
+:func:`rans_encode_chain` encodes an image's whole chain of slices in one
+call (two launches), and :func:`rans_encode` is its chain of one slice.
+On CUDA tensors they launch ``csrc/rans.cu``, on CPU tensors they run the
+plain versions, which loop over steps in Python with int64 tensors masked
+to 32 bits (torch's uint32 has too few ops).  All update the carried
+state tensors in place: ``states`` int64 ``[N]`` holding uint32 values,
+``offset`` / ``cursor`` int32 ``[1]``.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import numpy as np
@@ -26,13 +29,16 @@ from .. import _kernels
 
 RANS_L = 1 << 16  # lower bound of the state interval
 _MASK32 = 0xFFFFFFFF
+MAX_LANES = 1024  # the decode's cluster holds at most 1024 threads
+MAX_SLICES = 1024  # an encode chain's offsets fit the kernels' parameters
 
 
 def _check_carry(states, pos, name):
     if states.dtype != torch.int64 or states.dim() != 1:
         raise ValueError("states must be int64 [N]")
-    if not 1 <= states.shape[0] <= 1024:
-        raise ValueError(f"N={states.shape[0]} lanes: one block holds 1..1024")
+    if not 1 <= states.shape[0] <= MAX_LANES:
+        raise ValueError(f"N={states.shape[0]} lanes: the kernels take "
+                         f"1..{MAX_LANES}")
     if pos.dtype != torch.int32 or pos.shape != (1,):
         raise ValueError(f"{name} must be int32 [1]")
 
@@ -119,6 +125,81 @@ rans_decode.launches = 0
 
 # ---- encode ----------------------------------------------------------------
 
+def rans_encode_chain_plain(starts, freqs, offsets, states, cursor,
+                            buf) -> torch.Tensor:
+    """Plain PyTorch version of :func:`rans_encode_chain`."""
+    cursors = []
+    for a, b in zip(offsets[:-1].tolist(), offsets[1:].tolist()):
+        rans_encode_plain(starts[a:b], freqs[a:b], states, cursor, buf)
+        cursors.append(int(cursor[0]))
+    return torch.tensor(cursors, dtype=torch.int32, device=starts.device)
+
+
+def rans_encode_chain(starts: torch.Tensor, freqs: torch.Tensor,
+                      offsets: torch.Tensor, states: torch.Tensor,
+                      cursor: torch.Tensor, buf: torch.Tensor) -> torch.Tensor:
+    """Encode a chain of slices, in order, each in reverse step order.
+
+    starts/freqs int32 ``[n_total]``: the slices' (cum[s], cum[s+1] -
+    cum[s]) concatenated in encode order; freq 0 marks a masked no-op.
+    offsets int64 ``[n_slices + 1]`` on the host (they fix the launch
+    shape and reach the kernels as a launch parameter): slice s is
+    ``[offsets[s], offsets[s+1])``, from 0 to ``n_total``.  states int64 ``[N]``, cursor int32 ``[1]`` and buf int32
+    ``[cap]`` are updated in place: the emitted words land at
+    ``buf[cursor:]`` in encode order (the reverse of the stream order), and
+    the cursor counts every word, so a cursor past ``cap`` means the buffer
+    was too small.  Returns the cursor after each slice, int32
+    ``[n_slices]``.  On a CUDA tensor: two launches (lane chains, then
+    placement) whatever the number of slices.
+    """
+    for name, t in (("starts", starts), ("freqs", freqs), ("buf", buf)):
+        if t.dtype != torch.int32 or t.dim() != 1:
+            raise ValueError(f"{name} must be int32 [k]")
+    if starts.shape != freqs.shape:
+        raise ValueError("starts and freqs differ in shape")
+    if (offsets.dtype != torch.int64 or offsets.dim() != 1
+            or offsets.device.type != "cpu"):
+        raise ValueError("offsets must be int64 [n_slices + 1] on the host")
+    bounds = offsets.numpy()
+    n = starts.shape[0]
+    if (len(bounds) < 2 or bounds[0] != 0 or bounds[-1] != n
+            or (np.diff(bounds) < 0).any()):
+        raise ValueError(f"offsets must rise from 0 to {n}")
+    S = len(bounds) - 1
+    if S > MAX_SLICES:
+        raise ValueError(f"{S} slices: one call takes at most {MAX_SLICES}")
+    if n >= 1 << 31:
+        raise ValueError(f"{n} symbols: one call takes fewer than 2^31")
+    _check_carry(states, cursor, "cursor")
+    _check_tensors(starts.device, starts=starts, freqs=freqs, states=states,
+                   cursor=cursor, buf=buf)
+    if starts.device.type == "cpu":
+        return rans_encode_chain_plain(starts, freqs, offsets, states,
+                                       cursor, buf)
+    N = states.shape[0]
+    ends = np.cumsum(-(-np.diff(bounds) // N))  # the chain's steps
+    G = int(ends[-1])
+    if G == 0:
+        return cursor.expand(S).clone()
+    dev = starts.device
+    plan = np.ascontiguousarray(np.concatenate([bounds, ends]), np.int32)
+    lib = _kernels.lib()
+    words = ctypes.c_longlong()
+    lib.llicti_rans_encode_scratch(G, N, ctypes.byref(words))
+    scratch = torch.empty((words.value,), dtype=torch.int32, device=dev)
+    cursors = torch.empty((S,), dtype=torch.int32, device=dev)
+    err = lib.llicti_rans_encode_chain(
+        starts.data_ptr(), freqs.data_ptr(), plan.ctypes.data, S, G,
+        states.data_ptr(), cursor.data_ptr(), buf.data_ptr(), buf.shape[0],
+        cursors.data_ptr(), scratch.data_ptr(), N, _kernels.stream_ptr(dev))
+    _kernels.check(err, "llicti_rans_encode_chain")
+    rans_encode_chain.launches += 2
+    return cursors
+
+
+rans_encode_chain.launches = 0
+
+
 def rans_encode_plain(starts, freqs, states, cursor, buf) -> None:
     """Plain PyTorch version of :func:`rans_encode`."""
     n = starts.shape[0]
@@ -154,37 +235,13 @@ def rans_encode_plain(starts, freqs, states, cursor, buf) -> None:
 def rans_encode(starts: torch.Tensor, freqs: torch.Tensor,
                 states: torch.Tensor, cursor: torch.Tensor,
                 buf: torch.Tensor) -> None:
-    """Encode one slice in reverse step order.
+    """Encode one slice: :func:`rans_encode_chain` of a chain of one.
 
-    starts/freqs int32 ``[n]`` per symbol (cum[s], cum[s+1] - cum[s]);
-    freq 0 marks a masked no-op.  states int64 ``[N]``, cursor int32
-    ``[1]`` and buf int32 ``[cap]`` are updated in place: the emitted
-    words land at ``buf[cursor:]`` in encode order (the reverse of the
-    stream order), and the cursor counts every word, so a cursor past
-    ``cap`` means the buffer was too small.
+    starts/freqs int32 ``[n]``; states, cursor and buf as there.
     """
-    for name, t in (("starts", starts), ("freqs", freqs), ("buf", buf)):
-        if t.dtype != torch.int32 or t.dim() != 1:
-            raise ValueError(f"{name} must be int32 [k]")
-    if starts.shape != freqs.shape:
-        raise ValueError("starts and freqs differ in shape")
-    _check_carry(states, cursor, "cursor")
-    _check_tensors(starts.device, starts=starts, freqs=freqs, states=states,
-                   cursor=cursor, buf=buf)
-    if starts.device.type == "cpu":
-        rans_encode_plain(starts, freqs, states, cursor, buf)
-        return
-    n = starts.shape[0]
-    err = _kernels.lib().llicti_rans_encode(
-        starts.data_ptr(), freqs.data_ptr(), states.data_ptr(),
-        cursor.data_ptr(), buf.data_ptr(), buf.shape[0], n, states.shape[0],
-        _kernels.stream_ptr(starts.device))
-    _kernels.check(err, "llicti_rans_encode")
-    if n > 0:
-        rans_encode.launches += 1
-
-
-rans_encode.launches = 0
+    rans_encode_chain(starts, freqs,
+                      torch.tensor([0, starts.shape[0]], dtype=torch.int64),
+                      states, cursor, buf)
 
 
 # ---- stream assembly -------------------------------------------------------

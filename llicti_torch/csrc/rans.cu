@@ -2,25 +2,34 @@
 //
 // Replace llicti_tpu/coder/rans_device.py:rans_decode_body_batch and
 // rans_encode_body_batch, which the JAX package writes as XLA lax.scans
-// over the steps of one slice.  Coder: N lanes share one stream of 16-bit
-// words, states live in [2^16, 2^32), probabilities have 16 bits; symbol i
-// of a slice belongs to step i / N and lane i % N.
+// over the steps of one slice, and, for the encode, the loop over an
+// image's slices in llicti_tpu/codec.py (do_chain, rans_encode_group).
+// Coder: N lanes share one stream of 16-bit words, states live in
+// [2^16, 2^32), probabilities have 16 bits; symbol i of a slice belongs to
+// step i / N and lane i % N.
 //
-// What bounds them on the H100: the scan is sequential in the steps, so a
-// slice runs on one block or one small cluster and the rest of the card
-// idles.  Bytes are no limit (a few MB per slice); latency is.  A decode
-// step waits on its lanes' table searches: each probe is a dependent load,
-// and the table (up to 100 MB a slice) mostly misses L2, so the first
-// probes cost a device-memory round trip each; on one block a step cost
-// ~1 us of barrier, words and one probe plus ~0.5 us per further probe
-// level (decode of synthetic tables of P = 2 ... 513, PERF.md).  The
-// encode costs T = ceil(n / N) dependent steps.
+// What bounds them on the H100: the scans are sequential in the steps.
+// Bytes are no limit (a few MB per slice); latency is.  A decode step
+// waits on its lanes' table searches: each probe is a dependent load, and
+// the table (up to 100 MB a slice) mostly misses L2, so the first probes
+// cost a device-memory round trip each; on one block a step cost ~1 us of
+// barrier, words and one probe plus ~0.5 us per further probe level
+// (decode of synthetic tables of P = 2 ... 513, PERF.md).
 //
-// Both: one launch per slice, one lane per thread, states in registers for
-// the whole slice; the word a lane refills from (decode) or writes to
-// (encode) is its rank among the lanes that refill, a warp ballot plus an
-// exclusive prefix over per-warp counts in shared memory.  Lane states and
-// the word offset carry from slice to slice through device memory.
+// Decode: one launch per slice (a slice's tables depend on the slices
+// decoded before it), one lane per thread, states in registers for the
+// whole slice; the word a lane refills from is its rank among the lanes
+// that refill, a warp ballot plus an exclusive prefix over per-warp
+// counts.  Lane states and the word offset carry from slice to slice
+// through device memory.
+//
+// Encode: every slice's (start, freq) is known before the first one is
+// encoded, so an image's whole chain is one call of two launches.  What
+// bounds it is the chain's dependent steps (sum of ceil(n_s / N), 1,161
+// for 512x768 at N = 1024), not its bytes (~11 MB, 3 us at 3.35 TB/s): a
+// lane's step is a compare, a select, a 32-bit division and a
+// multiply-add on its state, ~90 ns with the step's other work (PERF.md).
+// The design keeps all else off that chain; see "Kernel 3" below.
 //
 // Integer-only, so the results equal the JAX scans bit for bit.
 #include <cooperative_groups.h>
@@ -37,11 +46,6 @@ constexpr int kMaxLanes = 1024;
 // (PERF.md): a cluster of 8 blocks, and 7 coarse entries per row.
 constexpr int kCluster = 8;
 constexpr int kCoarse = 7;
-
-__device__ __forceinline__ unsigned warp_mask(int warp, int nwarps, int N) {
-  return (warp == nwarps - 1 && (N & 31)) ? ((1u << (N & 31)) - 1u)
-                                          : 0xffffffffu;
-}
 
 // Decode one slice of n symbols: cum [n, P] int32 rows, strictly
 // increasing with cum[P-1] == 2^16 (cum[0] may be > 0).
@@ -178,56 +182,258 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
   cluster.sync();
 }
 
-// Encode one slice in reverse step order.  Within a step the emitted
-// words are placed in lane order N-1..0 at cursor + the exclusive count of
-// the emitting lanes before them; freq 0 marks a masked no-op.
-__global__ void rans_encode_kernel(const int* __restrict__ starts,
-                                   const int* __restrict__ freqs,
-                                   long long* __restrict__ states,
-                                   int* __restrict__ cursor,
-                                   int* __restrict__ buf, int cap, int n) {
-  __shared__ int warp_count[32];
-  const int N = blockDim.x, l = threadIdx.x;
-  const int lane = l & 31, warp = l >> 5, nwarps = (N + 31) >> 5;
-  const unsigned mask = warp_mask(warp, nwarps, N);
-  unsigned x = (unsigned)states[l];
-  long long cur = *cursor;
-  const int T = (n + N - 1) / N;
-  for (int t = T - 1; t >= 0; --t) {
-    const int i = t * N + l;
-    unsigned start = 0u, freq = 0u;
-    if (i < n) {
-      start = (unsigned)starts[i];
-      freq = (unsigned)freqs[i];
-    }
-    const bool val = freq > 0u;
-    const unsigned fs = freq > 0u ? freq : 1u;
+// ---- Kernel 3: the encode chain ------------------------------------------
+//
+// An image's slices, concatenated in encode order (slice s holds symbols
+// [off[s], off[s+1])), are encoded in two launches:
+//  1. rans_encode_lanes_kernel: each lane carries its state through every
+//     step of the chain (slices in order, steps T_s-1 ... 0 within a
+//     slice), with no barrier and no traffic between lanes: a lane's
+//     state, emit decisions and words depend only on its own symbols, as
+//     in the JAX scan, which carries only the states.  One warp per block,
+//     so the ceil(N / 32) warps sit on as many SMs and each lane's
+//     dependent chain (compare, select, one division, multiply-add and
+//     select per step) sets the time.  One warp issues in order, so
+//     whatever else a step does adds to that chain unless it sits in the
+//     same branch-free code: the steps run in unrolled blocks of kAhead
+//     with no branch, the next block's (start, freq) in flight meanwhile
+//     (the state decides none of them); lane j of the warp finds where
+//     step g + j lies (slice bounds in shared memory) and the loads take
+//     each step's place from it by a shuffle; lane k keeps step k's ballot
+//     of the emit decisions and the warp's running word count, stored
+//     once a block; each lane stores its words two steps to a 32-bit
+//     word.  Scratch is padded to whole blocks, so no store needs a guard.
+//  2. rans_encode_place_kernel: the JAX scan's placement.  A block takes
+//     kPlace / W whole steps; the words before them are the W warps'
+//     running counts at the step before, the block's own entries are
+//     prefixed in emission order (steps descending within a slice, warps
+//     descending), and a word's rank among the higher lanes of its warp
+//     completes its position.  Positions >= cap are dropped but counted
+//     (JAX's mode="drop").  The running counts at a slice's last step give
+//     its cursor.
+// The division stays xs / fs with r = xs - q * fs.
+
+constexpr int kAhead = 8;       // steps of a block; the next block in flight
+constexpr int kPlace = 256;     // threads (entries) of a placement block
+constexpr int kMaxSlices = 1024;
+constexpr int kStepRound = 64;  // scratch holds the steps rounded up to this
+static_assert(kStepRound % (2 * kAhead) == 0, "the loop runs 2 kAhead steps");
+
+// The chain's shape, a kernel parameter: the slices' offsets and the
+// chain's steps through each slice.
+struct ChainPlan {
+  int S;
+  int off[kMaxSlices + 1];
+  int ends[kMaxSlices];
+};
+
+__host__ __device__ __forceinline__ long long padded_steps(long long G) {
+  return (G + kStepRound - 1) / kStepRound * kStepRound;
+}
+
+// A load that the compiler keeps where it is written, so that the next
+// block's inputs are in flight while this block runs; 0 where !pred.
+__device__ __forceinline__ unsigned ld_nc(const int* p, bool pred) {
+  unsigned v;
+  asm volatile(
+      "{\n .reg .pred q;\n setp.ne.b32 q, %2, 0;\n mov.u32 %0, 0;\n"
+      " @q ld.global.nc.u32 %0, [%1];\n}"
+      : "=r"(v)
+      : "l"(p), "r"((int)pred));
+  return v;
+}
+
+// Lane j < kAhead: where step g + j lies, its first symbol and its
+// symbols (0 past the chain).  se: the steps through each slice; s, the
+// lane's slice, only moves forward.
+__device__ __forceinline__ void describe(const int* so, const int* se, int S,
+                                         int N, int lane, long long g,
+                                         int& s, int& first, int& count) {
+  const long long gj = g + (lane < kAhead ? lane : 0);
+  while (s < S && se[s] <= gj) ++s;
+  first = count = 0;
+  if (s < S) {
+    const int t = se[s] - 1 - (int)gj;  // the step within slice s
+    first = so[s] + t * N;
+    count = min(N, so[s + 1] - first);
+  }
+}
+
+// The inputs of a block of steps, lane l's of each (0 where the step
+// holds no symbol for it); the steps' places come from describe.
+__device__ __forceinline__ void load_block(const int* __restrict__ starts,
+                                           const int* __restrict__ freqs,
+                                           int first, int count, int l,
+                                           unsigned (&st)[kAhead],
+                                           unsigned (&fr)[kAhead]) {
+#pragma unroll
+  for (int k = 0; k < kAhead; ++k) {
+    const int fk = __shfl_sync(kFull, first, k);
+    const bool has = l < __shfl_sync(kFull, count, k);
+    const int i = has ? fk + l : 0;
+    st[k] = ld_nc(starts + i, has);
+    fr[k] = ld_nc(freqs + i, has);
+  }
+}
+
+// kAhead steps of one lane's chain from step g0 on inputs (st, fr) loaded
+// one block earlier, while the next block's inputs load into (nst, nfr).
+// ep: this warp's entries from step g0; lp: this lane's words from g0.
+__device__ __forceinline__ void run_block(
+    const int* __restrict__ starts, const int* __restrict__ freqs,
+    const int* so, const int* se, int S, int N, int l, int lane, int& ds,
+    long long g0, int W, unsigned& x, int& run, const unsigned (&st)[kAhead],
+    const unsigned (&fr)[kAhead], unsigned (&nst)[kAhead],
+    unsigned (&nfr)[kAhead], uint2* __restrict__ ep,
+    unsigned* __restrict__ lp) {
+  int first, count;
+  describe(so, se, S, N, lane, g0 + kAhead, ds, first, count);
+  load_block(starts, freqs, first, count, l, nst, nfr);
+  unsigned mb = 0u, mr = 0u, prev = 0u;
+#pragma unroll
+  for (int k = 0; k < kAhead; ++k) {
+    const bool val = fr[k] > 0u;  // freq 0 marks a masked no-op
+    const unsigned fs = val ? fr[k] : 1u;
     const bool emit = val && x >= (fs << 16);
     const unsigned word = x & 0xFFFFu;
     const unsigned xs = emit ? x >> 16 : x;
-    x = val ? ((xs / fs) << 16) + (xs % fs) + start : xs;
-    const unsigned ballot = __ballot_sync(mask, emit);
-    if (lane == 0) warp_count[warp] = __popc(ballot);
-    __syncthreads();
-    int after = 0, total = 0;
-    for (int k = 0; k < nwarps; ++k) {
-      const int c = warp_count[k];
-      after += k > warp ? c : 0;
-      total += c;
+    const unsigned q = xs / fs;
+    x = val ? (q << 16) + (xs - q * fs) + st[k] : xs;
+    const unsigned ballot = __ballot_sync(kFull, emit);
+    run += __popc(ballot);
+    if (lane == k) {
+      mb = ballot;
+      mr = (unsigned)run;
     }
-    __syncthreads();
-    if (emit) {
-      // 2u << 31 wraps to 0, so lane 31 has no higher lanes in its warp
-      const long long pos =
-          cur + after + __popc(ballot & ~((2u << lane) - 1u));
-      if (pos < cap) buf[pos] = (int)word;
-    }
-    cur += total;
+    if (k & 1) lp[(k >> 1) * 32 * W] = prev | (word << 16);
+    prev = word;
   }
-  states[l] = (long long)x;
-  if (l == 0) *cursor = (int)cur;
+  if (lane < kAhead) ep[lane] = make_uint2(mb, mr);
 }
 
+// Block b holds lanes 32 b ... 32 b + 31; lanes past N hold no symbol (no
+// step holds more than N).  entries: uint2 [W][padded G], warp-major in
+// emission order (row W - 1 - b); low: uint32 [padded G / 2][32 W].
+__global__ void __launch_bounds__(32)
+    rans_encode_lanes_kernel(const int* __restrict__ starts,
+                             const int* __restrict__ freqs,
+                             const __grid_constant__ ChainPlan plan,
+                             long long G, long long* __restrict__ states,
+                             const int* __restrict__ cursor,
+                             long long* __restrict__ cursor0,
+                             uint2* __restrict__ entries,
+                             unsigned* __restrict__ low, int N) {
+  extern __shared__ int smem[];
+  const int S = plan.S;
+  int* so = smem;          // offsets [S + 1]
+  int* se = smem + S + 1;  // steps through each slice [S]
+  for (int j = threadIdx.x; j <= S; j += 32) so[j] = plan.off[j];
+  for (int j = threadIdx.x; j < S; j += 32) se[j] = plan.ends[j];
+  __syncwarp();
+  const int W = gridDim.x, lane = threadIdx.x;
+  const int l = blockIdx.x * 32 + lane;
+  if (l == 0) *cursor0 = *cursor;
+  const bool live = l < N;
+  unsigned x = live ? (unsigned)states[l] : kRansL;
+  int ds = 0, first, count, run = 0;
+  unsigned ast[kAhead], afr[kAhead], bst[kAhead], bfr[kAhead];
+  describe(so, se, S, N, lane, 0, ds, first, count);
+  load_block(starts, freqs, first, count, l, ast, afr);
+  uint2* ep = entries + (W - 1 - blockIdx.x) * padded_steps(G);
+  unsigned* lp = low + l;
+  for (long long g0 = 0; g0 < G; g0 += 2 * kAhead) {
+    run_block(starts, freqs, so, se, S, N, l, lane, ds, g0, W, x, run, ast,
+              afr, bst, bfr, ep + g0, lp + (g0 >> 1) * 32 * W);
+    run_block(starts, freqs, so, se, S, N, l, lane, ds, g0 + kAhead, W, x,
+              run, bst, bfr, ast, afr, ep + g0 + kAhead,
+              lp + ((g0 + kAhead) >> 1) * 32 * W);
+  }
+  if (live) states[l] = (long long)x;
+}
+
+// Inclusive sum of v over the block (blockDim.x == kPlace).
+__device__ __forceinline__ int block_scan(int v, int* warp_sums) {
+  constexpr int kWarps = kPlace / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int u = __shfl_up_sync(kFull, v, o);
+    if (lane >= o) v += u;
+  }
+  if (lane == 31) warp_sums[warp] = v;
+  __syncthreads();
+  int before = 0;
+#pragma unroll
+  for (int k = 0; k < kWarps; ++k) before += k < warp ? warp_sums[k] : 0;
+  return v + before;
+}
+
+// The words emitted through step g (all W warps' running counts there),
+// summed by one warp.
+__device__ __forceinline__ unsigned words_through(
+    const uint2* __restrict__ entries, long long g, int W, long long Gp) {
+  const int lane = threadIdx.x & 31;
+  return __reduce_add_sync(kFull, lane < W ? entries[lane * Gp + g].y : 0u);
+}
+
+__global__ void __launch_bounds__(kPlace)
+    rans_encode_place_kernel(const uint2* __restrict__ entries,
+                             const unsigned* __restrict__ low,
+                             const __grid_constant__ ChainPlan plan,
+                             const long long* __restrict__ cursor0,
+                             long long G, int N, int* __restrict__ cursor,
+                             int* __restrict__ cursors,
+                             int* __restrict__ buf, int cap) {
+  __shared__ int warp_sums[kPlace / 32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int W = (N + 31) >> 5, per = kPlace / W;  // steps per block
+  const long long Gp = padded_steps(G);
+  const long long g_lo = (long long)blockIdx.x * per;
+  const long long cur0 = *cursor0;
+  const long long base =
+      cur0 + (g_lo > 0 ? words_through(entries, g_lo - 1, W, Gp) : 0u);
+  // thread tid holds entry tid: step g_lo + tid / W, emitted by warp
+  // src = W - 1 - tid % W (emission order within a step)
+  const long long g = g_lo + tid / W;
+  const int src = W - 1 - tid % W;
+  const unsigned b =
+      tid < per * W && g < G ? entries[(W - 1 - src) * Gp + g].x : 0u;
+  const int incl = block_scan(__popc(b), warp_sums);
+  // warp k places the words of its 32 entries, lane i those of lane i of
+  // each: all 32 loads first, then the stores; entry jj's fields come
+  // from lane jj
+  unsigned word[32];
+#pragma unroll
+  for (int jj = 0; jj < 32; ++jj) {
+    const unsigned bj = __shfl_sync(kFull, b, jj);
+    const long long gj = __shfl_sync(kFull, g, jj);
+    const int sj = __shfl_sync(kFull, src, jj);
+    word[jj] = ld_nc((const int*)low + ((gj >> 1) * W + sj) * 32 + lane,
+                     (bj >> lane) & 1u) >> (16 * (gj & 1));
+  }
+#pragma unroll
+  for (int jj = 0; jj < 32; ++jj) {
+    const unsigned bj = __shfl_sync(kFull, b, jj);
+    // 2u << 31 wraps to 0, so lane 31 has no higher lanes in its warp
+    const long long pos = base + __shfl_sync(kFull, incl, jj) - __popc(bj) +
+                          __popc(bj & ~((2u << lane) - 1u));
+    if (((bj >> lane) & 1u) && pos < cap) buf[pos] = (int)(word[jj] & 0xFFFFu);
+  }
+  // one warp per slice: the cursor after it, and after the chain
+  const int S = plan.S, warps = kPlace / 32;
+  for (int s = blockIdx.x * warps + warp; s <= S; s += gridDim.x * warps) {
+    const long long end = s < S ? plan.ends[s] : G;
+    const int v = (int)(cur0 + (end > 0 ? words_through(entries, end - 1, W,
+                                                        Gp)
+                                        : 0u));
+    if (lane == 0) {
+      if (s < S)
+        cursors[s] = v;
+      else
+        *cursor = v;
+    }
+  }
+}
 
 }  // namespace
 
@@ -244,12 +450,48 @@ extern "C" int llicti_rans_decode(const int* cum, const int* words,
   return (int)cudaGetLastError();
 }
 
-extern "C" int llicti_rans_encode(const int* starts, const int* freqs,
-                                  long long* states, int* cursor, int* buf,
-                                  int cap, int n, int N, void* stream) {
-  if (N < 1 || N > 1024) return (int)cudaErrorInvalidValue;
-  if (n > 0)
-    rans_encode_kernel<<<1, N, 0, (cudaStream_t)stream>>>(
-        starts, freqs, states, cursor, buf, cap, n);
+// The scratch of a chain of G steps over N lanes, in int32 words:
+// entries uint2 [W Gp], then low uint32 [Gp / 2 * 32 W], then cursor0
+// int64, with W = ceil(N / 32) and Gp = G rounded up to kStepRound.
+__host__ __device__ __forceinline__ long long scratch_words(long long G,
+                                                           int N) {
+  const long long W = (N + 31) / 32, Gp = padded_steps(G);
+  return 2 * W * Gp + Gp / 2 * 32 * W + 2;
+}
+
+extern "C" int llicti_rans_encode_scratch(long long G, int N,
+                                          long long* words) {
+  *words = scratch_words(G, N);
+  return 0;
+}
+
+// plan: int32 [2 S + 1] in host memory, the offsets [S + 1] of the S
+// slices, then the chain's steps through each slice [S]; it reaches both
+// kernels as a parameter.  G: the chain's steps.  scratch: int32
+// [llicti_rans_encode_scratch(G, N)].  Launches nothing when G == 0.
+extern "C" int llicti_rans_encode_chain(
+    const int* starts, const int* freqs, const int* plan, int S, long long G,
+    long long* states, int* cursor, int* buf, int cap, int* cursors,
+    int* scratch, int N, void* stream) {
+  if (N < 1 || N > kMaxLanes || S < 1 || S > kMaxSlices || G < 0)
+    return (int)cudaErrorInvalidValue;
+  if (G == 0) return (int)cudaGetLastError();
+  ChainPlan p;
+  p.S = S;
+  for (int s = 0; s <= S; ++s) p.off[s] = plan[s];
+  for (int s = 0; s < S; ++s) p.ends[s] = plan[S + 1 + s];
+  const int W = (N + 31) / 32;
+  uint2* entries = (uint2*)scratch;
+  unsigned* low = (unsigned*)(scratch + 2 * W * padded_steps(G));
+  long long* cursor0 = (long long*)(scratch + scratch_words(G, N) - 2);
+  const cudaStream_t st = (cudaStream_t)stream;
+  rans_encode_lanes_kernel<<<W, 32, (2 * S + 1) * sizeof(int), st>>>(
+      starts, freqs, p, G, states, cursor, cursor0, entries, low, N);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long per = kPlace / W;
+  rans_encode_place_kernel<<<(unsigned)((G + per - 1) / per), kPlace, 0,
+                             st>>>(entries, low, p, cursor0, G, N, cursor,
+                                   cursors, buf, cap);
   return (int)cudaGetLastError();
 }

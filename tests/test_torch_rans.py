@@ -134,6 +134,88 @@ def test_chain_blob_matches_jax(N, floor0):
     assert off == int(joff[0]) == W
 
 
+def chain_inputs(rng, sizes):
+    """(start, freq) int32 arrays per slice, in encode order: ``sizes``
+    holds (symbols, masked entries) per slice, the masked ones (freq 0,
+    any start) after the symbols."""
+    out = []
+    for n, pad in sizes:
+        st = fr = np.zeros(0, np.int32)
+        if n:
+            cum = make_cum(rng, n, int(rng.choice([2, 33, 257])), True)
+            st, fr = start_freq(cum, sample_syms(rng, cum))
+        out.append((np.concatenate([st, rng.integers(0, 2 ** 16, pad)
+                                    .astype(np.int32)]),
+                    np.concatenate([fr, np.zeros(pad, np.int32)])))
+    return out
+
+
+@pytest.mark.parametrize("N,sizes", [
+    (16, ((0, 0), (5, 0), (40, 7), (16, 0), (0, 3), (123, 20))),
+    (32, ((31, 1), (0, 0), (64, 0), (200, 33))),
+    (1, ((3, 0), (0, 0), (7, 2)))])
+def test_encode_chain_matches_jax_and_slice_loop(N, sizes):
+    """rans_encode_chain (plain) against the JAX chain (rans_encode_group)
+    and against one rans_encode call per slice: identical words, per-slice
+    cursors and final states, from carried states that include 2^16 and
+    2^32 - 1; with empty slices, slices shorter than N and masked
+    padding."""
+    rng = np.random.default_rng(100 + N)
+    st_fr = chain_inputs(rng, sizes)
+    x0 = rng.integers(2 ** 16, 2 ** 32, N, dtype=np.int64)
+    x0[::2] = 2 ** 16
+    x0[1::3] = 2 ** 32 - 1
+    cap = sum(len(fr) for _, fr in st_fr) + N
+
+    def carry():
+        return (torch.from_numpy(x0.copy()), torch.full((1,), 3, dtype=
+                torch.int32), torch.zeros((cap,), dtype=torch.int32))
+
+    states, cursor, buf = carry()
+    offsets = torch.from_numpy(np.cumsum([0] + [len(fr) for _, fr in st_fr]))
+    cursors = tr.rans_encode_chain(
+        torch.from_numpy(np.concatenate([st for st, _ in st_fr])),
+        torch.from_numpy(np.concatenate([fr for _, fr in st_fr])), offsets,
+        states, cursor, buf)
+    assert cursors.dtype == torch.int32 and cursors.shape == (len(sizes),)
+
+    ls, lc, lb = carry()
+    loop = []
+    for st, fr in st_fr:
+        tr.rans_encode(torch.from_numpy(st), torch.from_numpy(fr), ls, lc, lb)
+        loop.append(int(lc[0]))
+    assert cursors.tolist() == loop and int(cursor[0]) == loop[-1]
+    assert torch.equal(states, ls) and torch.equal(buf, lb)
+
+    jbuf, jcur, jst, jcurs = jr.rans_encode_group(
+        tuple(jnp.asarray(st) for st, _ in st_fr),
+        tuple(jnp.asarray(fr) for _, fr in st_fr),
+        jnp.asarray(x0.astype(np.uint32)), jnp.full((1,), 3, jnp.int32),
+        jnp.zeros((cap,), jnp.int32), N)
+    assert [int(np.asarray(c).reshape(-1)[0]) for c in jcurs] == loop
+    np.testing.assert_array_equal(states.numpy(), np.asarray(jst))
+    np.testing.assert_array_equal(buf.numpy(), np.asarray(jbuf))
+
+
+def test_encode_chain_rejects_bad_offsets():
+    starts = torch.zeros((10,), dtype=torch.int32)
+    states = torch.full((4,), tr.RANS_L, dtype=torch.int64)
+    cursor = torch.zeros((1,), dtype=torch.int32)
+    buf = torch.zeros((16,), dtype=torch.int32)
+    for offsets in ([0, 4, 9], [1, 10], [0, 6, 4, 10], [0], [0, 11]):
+        with pytest.raises(ValueError):
+            tr.rans_encode_chain(starts, starts, torch.tensor(offsets),
+                                 states, cursor, buf)
+    with pytest.raises(ValueError):
+        tr.rans_encode_chain(starts, starts, torch.tensor([0, 10]).int(),
+                             states, cursor, buf)
+    with pytest.raises(ValueError):
+        tr.rans_encode_chain(starts, starts, torch.tensor(
+            list(range(tr.MAX_SLICES)) + [10] * 2), states, cursor, buf)
+    assert tr.rans_encode_chain(starts, starts, torch.tensor([0, 0, 10]),
+                                states, cursor, buf).tolist() == [0, 0]
+
+
 def test_decode_masked_search_below_first_entry():
     """A slot below cum[0] gives s = -1 with (start, freq) = (0, cum[0]),
     as the JAX scan's masked reductions do; a stream that runs out of

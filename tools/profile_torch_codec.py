@@ -10,7 +10,8 @@ unpacked older tree to compare two versions in one run) and round-trips
 and 1024 lanes on the CUDA card: prints the container's sha256, size and
 bpsp, the encode and decode times of ``--runs`` round trips (host clock
 around work that ends in ``torch.cuda.synchronize()``, after one warm-up;
-min / median / max), and, unless ``--no-profile``, one ``torch.profiler``
+min / median / max), Kernel 3's CUDA-event time and launches per encode
+(:func:`encode_kernel_ms`), and, unless ``--no-profile``, one ``torch.profiler``
 run of each direction: wall time, device busy time (the union of the
 kernels' intervals), idle share, and device time and launches per kernel
 group (convs, Kernel 1, 2, 3, other).  The last line is the card's name and
@@ -30,7 +31,9 @@ import torch
 
 GROUPS = (("Kernel 1 (CDF)", ("cdf_pmap_kernel",)),
           ("Kernel 2 (rANS decode)", ("rans_decode_kernel",)),
-          ("Kernel 3 (rANS encode)", ("rans_encode_kernel",)),
+          # rans_encode_kernel in older trees, rans_encode_lanes_kernel and
+          # rans_encode_place_kernel since the chain
+          ("Kernel 3 (rANS encode)", ("rans_encode_",)),
           ("convs (cuDNN)", ("conv", "sgemm", "gemm", "implicit")))
 
 
@@ -40,6 +43,54 @@ def timed(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, 1e3 * (time.perf_counter() - t0)
+
+
+def encode_kernel_ms(codec, img, iters: int = 20):
+    """(CUDA-event ms of Kernel 3 per encode of ``img``, its launches per
+    encode): the encoder's inputs are captured from one ``compress``, then
+    encoded ``iters`` times from fresh states the way this tree's
+    ``compress`` calls the encoder: one chain call, or in older trees one
+    call per slice.  CPU tensors would run the plain version: the caller
+    gives a CUDA codec."""
+    from llicti_torch import codec as cmod
+    name = ("rans_encode_chain" if hasattr(cmod, "rans_encode_chain")
+            else "rans_encode")
+    fn = getattr(cmod, name)
+    calls = []
+
+    def record(*args):
+        calls.append(args)
+        return fn(*args)
+
+    setattr(cmod, name, record)
+    try:
+        codec.compress(img)
+    finally:
+        setattr(cmod, name, fn)
+    states, cursor, buf = calls[0][-3:]
+    N, cap = states.shape[0], buf.shape[0]
+    carries = [(torch.full_like(states, 1 << 16), torch.zeros_like(cursor),
+                torch.zeros((cap,), dtype=torch.int32, device=buf.device))
+               for _ in range(iters + 1)]
+
+    def encode(carry):
+        for args in calls:
+            fn(*args[:-3], *carry)
+
+    encode(carries[0])
+    torch.cuda.synchronize()
+    launches = fn.launches
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    # queued behind a ~10 ms device-side wait, so that the wrappers' host
+    # work does not show in the kernels' time
+    torch.cuda._sleep(20_000_000)
+    t0.record()
+    for carry in carries[1:]:
+        encode(carry)
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters, (fn.launches - launches) // iters
 
 
 def profile(fn, label: str) -> None:
@@ -102,6 +153,9 @@ def main() -> None:
     for label, xs in (("encode", enc), ("decode", dec)):
         print(f"{label} ms over {args.runs} round trips: min {min(xs):.2f}, "
               f"median {statistics.median(xs):.2f}, max {max(xs):.2f}")
+    ms, launches = encode_kernel_ms(codec, img)
+    print(f"Kernel 3 per encode (CUDA events, 20 encodes of the captured "
+          f"slices): {ms:.5f} ms, {launches} launches")
     if not args.no_profile:
         profile(lambda: codec.compress(img), "encode")
         streams = codec.compress(img)
