@@ -42,9 +42,29 @@ Phases, each of which raises on failure:
      0+seqmd x normal / logistic, GDN1, mwsa_joint, combine_layers1toL),
      plus 310x598 for clrjnt 1 and 0+seqmd; the trained weights for
      clrjnt 2 logistic, init_params(cfg, seed=0) for the rest (so only
-     losslessness and the kernels mean anything there, not the bits).
-The line before the last is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}.
+     losslessness and the kernels mean anything there, not the bits);
+  9. the serving path, each part driven with the launch counts set to 0
+     just before it and read just after: (a) Kernels 2 and 3 batched over
+     K = 8 images synthetic_image(512, 768, seed=42+k), one launch / one
+     call, bit-identical to their plain versions on the finest Y slices
+     and on the eight 45-slice chains, timed a launch and an image beside
+     K = 1's with each bound, and the card's resident decode clusters
+     (cudaOccupancyMaxActiveClusters); (b) the batch container of the
+     eight: compress_batch -> serialize -> deserialize -> decompress_batch
+     lossless, 45 Kernel 2 launches and at most 2 of Kernel 3, eight
+     copies of one image giving eight identical blobs, and
+     prepare_decode_batch's closure; (c) compress_many / decompress_many
+     of six images, byte-equal to six compress calls with equal per-image
+     accounting; (d) prepare_decode / prepare_encode closures equal to the
+     wire paths, one call of each under set_sync_debug_mode("error") and a
+     torch.profiler trace with no Memcpy HtoD/DtoH, then ms an image over
+     30 back-to-back calls; (e) size_bucket=64 on four ragged sizes; (f)
+     two_stage on 512x768 and 310x598, cross-decoded with the fused codec
+     both ways.  Wall time and peak memory of each part are printed.
+The line before the last is {"kernels": [...]}: Kernel 2's and Kernel 3's
+rows also carry the batch figures (batch_k, batch_ms, batch_plain_ms,
+batch_bound_ms, batch_launches); the last line is {"ok": true, "device":
+{...}}.
 """
 from __future__ import annotations
 
@@ -393,16 +413,25 @@ def chain_outputs(starts, freqs, offsets, carry):
     return outs[0], err
 
 
+def chain_inputs(codec, imgs):
+    """(starts, freqs int32 [K, n_total], offsets, slice sizes, word cap)
+    of the encode chains of one image or of a list of images of one shape
+    (Codec.encode_inputs), slices in encode order."""
+    sf, cap = codec.encode_inputs(imgs)
+    starts = torch.cat([st for st, _ in reversed(sf)], dim=1)
+    freqs = torch.cat([fr for _, fr in reversed(sf)], dim=1)
+    sizes = [fr.shape[1] for _, fr in reversed(sf)]
+    offsets = torch.tensor(np.cumsum([0] + sizes), dtype=torch.int64)
+    return starts, freqs, offsets, sizes, cap
+
+
 def chain_phase(codec, img):
     """Kernel 3 on the main path's chain: the 45 slices of ``img`` in one
     call, against rans_encode_chain_plain; timed as a whole chain.
     Returns ((max |d|, ms, plain ms, bound ms, bound_by), steps)."""
     dev, N = codec.device, codec.N
-    sf, cap, _ = codec.encode_inputs(img)
-    starts = torch.cat([st for st, _ in reversed(sf)])
-    freqs = torch.cat([fr for _, fr in reversed(sf)])
-    sizes = [fr.shape[0] for _, fr in reversed(sf)]
-    offsets = torch.tensor(np.cumsum([0] + sizes), dtype=torch.int64)
+    starts, freqs, offsets, sizes, cap = chain_inputs(codec, img)
+    starts, freqs = starts[0], freqs[0]  # the 1-D form of one chain
     (cursors, _, cursor, _), err = chain_outputs(
         starts, freqs, offsets, fresh_carry(N, cap, dev))
     check(err == 0, "Kernel 3 chain != rans_encode_chain_plain (words, "
@@ -707,6 +736,362 @@ def variants_phase(img, odd):
     return logistic_launches, per_trip
 
 
+BATCH_K = 8  # images of the serving phase's batch container
+# Kernel 2 on the finest Y slice and Kernel 3 on the 45-slice chain at
+# K = 1 before the batched kernels, NVIDIA H100 80GB HBM3 at 700 W (PERF.md)
+K1_EARLIER_MS = (0.294, 0.110)
+
+
+def batch_carry(K: int, N: int, cap: int, dev):
+    """(states, cursor, buf) of K encodes from 2^16 lanes, cursor 0."""
+    return (torch.full((K, N), rans.RANS_L, dtype=torch.int64, device=dev),
+            torch.zeros((K,), dtype=torch.int32, device=dev),
+            torch.zeros((K, cap), dtype=torch.int32, device=dev))
+
+
+def batched_kernel_phase(codec, imgs, kres):
+    """Kernels 2 and 3 on K images in one launch (one call) against their
+    plain versions, bit for bit: the finest Y slice of each image, and
+    Kernel 3 also on the K whole chains.  Returns the batch figures of the
+    decode and encode rows."""
+    cfg, dev, N = codec.cfg, codec.device, codec.N
+    K = len(imgs)
+    batch = np.stack(imgs)
+    minmax, _ = cmod.host_header(batch, cfg.dwtlevels)
+    minv, maxv = cmod.clr_range(0, minmax)  # the batch's union Y range
+    x = torch.from_numpy(batch).to(dev)
+    y0 = lazy_dwt(codec._to_y(rgb_int_to_ycocg_r_int(x)), cfg.dwtlevels,
+                  pad=True)[0][0]
+    n = y0.shape[1] * y0.shape[2]
+    with torch.inference_mode():
+        pmap = codec.model.band_params(y0[..., :3].contiguous(), 0, 0)
+    M, s0, m0, w0, upd = cmod.pmap_cdf_spec(cfg, 0, 0)
+    sch = cmod.sym_channel(cfg, 0, 0)
+    y2 = y0.reshape(K * n, -1).contiguous()
+    cum, st, fr = cdf.gmm_cdf_from_pmap(
+        cdf_sampling_points(minv, maxv).to(dev),
+        pmap.reshape(K * n, -1).contiguous(), y2, M, s0, m0, w0, upd, False,
+        sch, minv)
+    cum, st, fr = cum.view(K, n, -1), st.view(K, n), fr.view(K, n)
+    P = cum.shape[-1]
+    true_sym = (torch.round(y2[:, sch] * 255.0).int() - minv).view(K, n)
+
+    # Kernel 3, the K images' Y slices in one call
+    offsets = torch.tensor([0, n], dtype=torch.int64)
+    cap = n + N
+    (_, states, cursor, buf), enc_err = chain_outputs(
+        st, fr, offsets, batch_carry(K, N, cap, dev))
+    check(enc_err == 0, f"batched Kernel 3 (K={K}, Y slice) != plain")
+    totals = cursor.tolist()
+    blobs = [rans.pack_stream_packed(buf[k, :t].cpu().numpy(),
+                                     states[k].cpu().numpy())
+             for k, t in enumerate(totals)]
+    y_ms = cuda_ms(lambda s, c, b: rans.rans_encode_chain(
+        st, fr, offsets, s, c, b), 20, lambda _: batch_carry(K, N, cap, dev))
+    y_plain = cuda_ms(lambda s, c, b: rans.rans_encode_chain_plain(
+        st, fr, offsets, s, c, b), 1, lambda _: batch_carry(K, N, cap, dev))
+    y_bnd = bound(8 * K * n + 4 * sum(totals) + 16 * K * N, 0)
+
+    # Kernel 2, the K Y slices in one launch, words zero-padded per row
+    unpacked = [rans.unpack_stream(b, N) for b in blobs]
+    W = max(w.size for _, w in unpacked)
+    words = torch.zeros((K, W), dtype=torch.int32, device=dev)
+    for k, (_, w) in enumerate(unpacked):
+        words[k, :w.size] = torch.from_numpy(w).to(dev)
+    states0 = torch.from_numpy(np.stack([sn for sn, _ in unpacked])
+                               .astype(np.int64)).to(dev)
+
+    def fresh_dec(_):
+        return (states0.clone(),
+                torch.zeros((K,), dtype=torch.int32, device=dev))
+
+    outs = []
+    for fn in (rans.rans_decode, rans.rans_decode_plain):
+        s, o = fresh_dec(0)
+        outs.append((fn(cum, words, s, o), s, o))
+    torch.cuda.synchronize()
+    (ksy, kst, koff), (psy, pst, poff) = outs
+    dec_err = max(max_abs(ksy, psy), max_abs(kst, pst), max_abs(koff, poff))
+    check(dec_err == 0, f"batched Kernel 2 (K={K}) != plain")
+    check(torch.equal(ksy, true_sym), "batched Kernel 2 lost symbols")
+    check(koff.tolist() == totals, "batched Kernel 2 read other word counts")
+    dec_ms = cuda_ms(lambda s, o: rans.rans_decode(cum, words, s, o), 20,
+                     fresh_dec)
+    dec_plain = cuda_ms(lambda s, o: rans.rans_decode_plain(cum, words, s,
+                                                            o), 1, fresh_dec)
+    searched = math.ceil(math.log2(P + 1))
+    dec_bnd = bound(4 * K * n * (searched + 1) + 4 * sum(totals)
+                    + 16 * K * N, 0)
+    clusters = rans.decode_max_clusters(N)
+
+    # Kernel 3 on the K images' whole chains, one call
+    starts, freqs, offs, sizes, ccap = chain_inputs(codec, imgs)
+    (_, _, ccur, _), ch_err = chain_outputs(
+        starts, freqs, offs, batch_carry(K, N, ccap, dev))
+    check(ch_err == 0, f"batched Kernel 3 (K={K}, 45-slice chains) != plain")
+    check(max(ccur.tolist()) <= ccap, "a chain overran its buffer")
+    ch_ms = cuda_ms(lambda s, c, b: rans.rans_encode_chain(
+        starts, freqs, offs, s, c, b), 20,
+        lambda _: batch_carry(K, N, ccap, dev))
+    ch_plain = cuda_ms(lambda s, c, b: rans.rans_encode_chain_plain(
+        starts, freqs, offs, s, c, b), 1,
+        lambda _: batch_carry(K, N, ccap, dev))
+    ch_bnd = bound(8 * starts.numel() + 4 * sum(ccur.tolist())
+                   + 16 * K * N, 0)
+
+    k1_dec, k1_chain = kres["decode"][1], kres["encode"][1]
+    k1_y = kres["encode_slice"][1]
+    print(f"batched kernel2 decode, K={K} Y slices P={P} n={n}: identical "
+          f"symbols, states, offsets; {dec_ms:.5f} ms a launch, "
+          f"{dec_ms / K:.5f} ms an image (K=1: {k1_dec:.5f}), plain "
+          f"{dec_plain:.5f} ms, bound {dec_bnd[0]:.5f} ms ({dec_bnd[1]}); "
+          f"the card holds {clusters} decode clusters at once")
+    print(f"batched kernel3 encode, K={K} Y slices: identical words, "
+          f"cursors, states; {y_ms:.5f} ms a call, {y_ms / K:.5f} ms an image "
+          f"(K=1: {k1_y:.5f}), plain {y_plain:.5f} ms, bound "
+          f"{y_bnd[0]:.5f} ms ({y_bnd[1]})")
+    print(f"batched kernel3 encode, K={K} whole chains ({len(sizes)} slices, "
+          f"{starts.shape[1]} symbols each): identical words, per-slice "
+          f"cursors, states; {ch_ms:.5f} ms a call, {ch_ms / K:.5f} ms an "
+          f"image (K=1: {k1_chain:.5f}), plain {ch_plain:.5f} ms, bound "
+          f"{ch_bnd[0]:.5f} ms ({ch_bnd[1]})")
+    print(f"K=1 against the single-image kernels' earlier times (rANS decode "
+          f"{K1_EARLIER_MS[0]} ms, chain {K1_EARLIER_MS[1]} ms): decode "
+          f"{k1_dec / K1_EARLIER_MS[0]:.3f}x, chain "
+          f"{k1_chain / K1_EARLIER_MS[1]:.3f}x")
+    return ({"batch_k": K, "batch_ms": dec_ms, "batch_plain_ms": dec_plain,
+             "batch_bound_ms": dec_bnd[0], "batch_max_abs_err": dec_err,
+             "max_clusters": clusters},
+            {"batch_k": K, "batch_ms": ch_ms, "batch_plain_ms": ch_plain,
+             "batch_bound_ms": ch_bnd[0],
+             "batch_max_abs_err": max(enc_err, ch_err),
+             "batch_y_slice_ms": y_ms, "batch_y_slice_bound_ms": y_bnd[0]})
+
+
+def reset_counts(counters) -> None:
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def read_counts(counters, label: str):
+    """The counts since reset_counts; each kernel must have launched."""
+    got = {name: fn.launches for name, fn in counters.items()}
+    check(all(v > 0 for v in got.values()),
+          f"{label}: a kernel of the path was not launched: {got}")
+    return got
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def peak_mib() -> float:
+    return torch.cuda.max_memory_allocated() / 2 ** 20
+
+
+def event_ms_per_call(fn, calls: int) -> float:
+    """Mean ms of back-to-back calls of ``fn`` by CUDA events (host work
+    included: a closure's launches are its cost), after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(calls):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / calls
+
+
+def no_copy_call(fns):
+    """One call of each closure under set_sync_debug_mode("error") and a
+    torch.profiler trace: -> (device events, host<->card copies)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for fn in fns:
+                fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    events = prof.events()
+    device = [e for e in events
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    copies = sorted({e.name for e in events if "Memcpy HtoD" in e.name
+                     or "Memcpy DtoH" in e.name})
+    return len(device), copies
+
+
+def serving_phase(codec, params, kres, counters):
+    """The serving path: batched kernels, the batch container, pipelined
+    calls, resident closures, size_bucket and two_stage, each driven with
+    the launch counts set to 0 just before it and read just after.
+    Returns (the decode row's and the encode row's batch figures, per-path
+    launches)."""
+    cfg, N = codec.cfg, codec.N
+    S = cfg.num_scales
+    imgs = [synthetic_image(512, 768, seed=42 + k) for k in range(BATCH_K)]
+    paths = {}
+    t0 = time.perf_counter()
+    dec_row, enc_row = batched_kernel_phase(codec, imgs, kres)
+    print(f"serving: batched kernels in {time.perf_counter() - t0:.2f} s, "
+          f"peak memory {peak_mib():.1f} MiB")
+
+    # 2. the batch container
+    t0 = time.perf_counter()
+    codec.decompress_batch(codec.compress_batch(imgs))  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    streams, enc_ms = timed(lambda: codec.compress_batch(imgs))
+    got = {name: fn.launches for name, fn in counters.items()}
+    check(got["rans_decode"] == 0 and 0 < got["rans_encode"] <= 2
+          and got["gmm_cdf_from_pmap"] > 0,
+          f"batch encode launches {got}: Kernel 3 at most 2, Kernel 2 none")
+    blob = Codec.serialize(streams)
+    reset_counts(counters)
+    outs, dec_ms = timed(lambda: codec.decompress_batch(
+        Codec.deserialize(blob)))
+    dgot = {name: fn.launches for name, fn in counters.items()}
+    check(dgot["rans_decode"] == 9 * S and dgot["rans_encode"] == 0,
+          f"batch decode launches {dgot}: Kernel 2 once a slice")
+    paths["batch container"] = {"encode": got, "decode": dgot}
+    for k, (im, out) in enumerate(zip(imgs, outs)):
+        check(out.shape == im.shape and np.array_equal(out, im),
+              f"batch container: image {k} lossy")
+    sizes = [len(g[0]) for g in streams[1:]]
+    bpsp = Codec.num_bytes(streams) * 8 / sum(im.size for im in imgs)
+    print(f"serving: batch container K={BATCH_K} 512x768: lossless, "
+          f"{len(blob)} bytes ({bpsp:.4f} bpsp; blobs {sizes}), encode "
+          f"{enc_ms:.2f} ms ({enc_ms / BATCH_K:.2f} an image), decode "
+          f"{dec_ms:.2f} ms ({dec_ms / BATCH_K:.2f} an image), launches "
+          f"encode {got} decode {dgot}, peak memory {peak_mib():.1f} MiB")
+    same = codec.compress_batch([imgs[0]] * BATCH_K)
+    check(all(g == same[1] for g in same[2:]),
+          "eight copies of one image gave different blobs")
+    fn = codec.prepare_decode_batch(streams)
+    brgb = fn().cpu().numpy()
+    check(all(np.array_equal(brgb[k], im) for k, im in enumerate(imgs)),
+          "prepare_decode_batch's closure != the images")
+    bclosure_ms = event_ms_per_call(fn, 10)
+    print(f"serving: eight copies of seed 42 -> eight identical blobs; "
+          f"prepare_decode_batch closure lossless, {bclosure_ms:.2f} ms a "
+          f"call ({bclosure_ms / BATCH_K:.2f} an image, 10 calls); phase "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    # 3. pipelined calls
+    t0 = time.perf_counter()
+    six = imgs[:6]
+    singles, tables = [], []
+    for im in six:
+        singles.append(codec.compress(im))
+        tables.append((codec.last_slice_bits, codec.last_ideal_bits))
+    singles_ms = timed(lambda: [codec.compress(im) for im in six])[1]
+    reset_counts(counters)
+    manys, many_ms = timed(lambda: codec.compress_many(six))
+    outs, dmany_ms = timed(lambda: codec.decompress_many(manys))
+    paths["pipelined"] = read_counts(counters, "pipelined calls")
+    check(manys == singles, "compress_many != six compress calls")
+    check(codec.last_slice_bits_batch == [t[0] for t in tables],
+          "compress_many's slice-bits tables != compress's")
+    check(all(np.allclose(np.array(a), np.array(t[1]), rtol=1e-6, atol=0)
+              for a, t in zip(codec.last_ideal_bits_batch, tables)),
+          "compress_many's ideal-bits tables != compress's")
+    check(all(np.array_equal(o[0], im) for o, im in zip(outs, six)),
+          "decompress_many lossy")
+    dsingles_ms = timed(lambda: [codec.decompress(m) for m in manys])[1]
+    print(f"serving: compress_many of six 512x768 images == six compress "
+          f"calls (bytes and per-image tables): {many_ms:.2f} ms against "
+          f"{singles_ms:.2f} ms; decompress_many lossless {dmany_ms:.2f} ms "
+          f"against {dsingles_ms:.2f} ms; phase "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    # 4. resident closures
+    t0 = time.perf_counter()
+    img = imgs[0]
+    single = codec.compress(img)
+    dec_fn, enc_fn = codec.prepare_decode(single), codec.prepare_encode(img)
+    reset_counts(counters)
+    rgb = dec_fn()
+    cursors, states, buf, _ideal = enc_fn()
+    paths["resident"] = read_counts(counters, "resident closures")
+    check(np.array_equal(rgb.cpu().numpy(), codec.decompress(single)),
+          "prepare_decode's closure != decompress")
+    total = int(cursors[0, -1])
+    check(rans.pack_stream_packed(buf[0, :total].cpu().numpy(),
+                                  states[0].cpu().numpy()) == single[1][0],
+          "prepare_encode's closure does not repack into compress's blob")
+    n_dev, copies = no_copy_call([dec_fn, enc_fn])
+    check(n_dev > 0, "the profiler saw no device work")
+    check(not copies, f"a closure copied between host and card: {copies}")
+    dec_call = event_ms_per_call(dec_fn, 30)
+    enc_call = event_ms_per_call(enc_fn, 30)
+    print(f"serving: resident closures equal the wire paths; one call each "
+          f"under set_sync_debug_mode('error'): no synchronisation, "
+          f"{n_dev} device events, no Memcpy HtoD/DtoH; prepare_decode "
+          f"{dec_call:.2f} ms an image, prepare_encode {enc_call:.2f} ms an "
+          f"image (30 back-to-back calls, CUDA events); phase "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    # 5. size_bucket
+    t0 = time.perf_counter()
+    bucketed = Codec(cfg, params, num_lanes=N, size_bucket=64)
+    ragged = [(310, 598), (317, 605), (333, 577), (301, 640)]
+    rimgs = [synthetic_image(h, w, seed=7 + i)
+             for i, (h, w) in enumerate(ragged)]
+    bucketed.decompress(bucketed.compress(rimgs[0]))  # warm-up
+    reset_counts(counters)
+    for (h, w), im in zip(ragged, rimgs):
+        streams = bucketed.compress(im)
+        out = bucketed.decompress(streams, xorg=im)
+        check(out.shape == (1, h, w, 3) and np.array_equal(out[0], im)
+              and bucketed.last_ycocg_err == 0,
+              f"size_bucket {h}x{w}: lossy or wrong crop")
+        check(np.frombuffer(streams[0][0][5:13], np.uint32).tolist()
+              == [h, w], "size_bucket header lost the original size")
+    paths["size_bucket"] = read_counts(counters, "size_bucket")
+    check(len(bucketed.compiled_shapes) <= 2,
+          f"padded shapes {bucketed.compiled_shapes}")
+    print(f"serving: size_bucket=64 on {ragged}: lossless, cropped back, "
+          f"padded shapes {sorted(bucketed.compiled_shapes)}; phase "
+          f"{time.perf_counter() - t0:.2f} s")
+    del bucketed
+
+    # 6. two_stage
+    t0 = time.perf_counter()
+    split = Codec(cfg, params, num_lanes=N, two_stage=True)
+    odd = synthetic_image(310, 598, seed=7)
+    split.decompress(split.compress(odd))  # warm-up
+    reset_counts(counters)
+    for im in (img, odd):
+        s_split, s_fused = split.compress(im), codec.compress(im)
+        check(s_split == s_fused, "two_stage changed the encoder's bytes")
+        for dec, s, label in ((split, s_split, "two-stage"),
+                              (split, s_fused, "two-stage of fused"),
+                              (codec, s_split, "fused of two-stage")):
+            out = dec.decompress(s, xorg=im)
+            check(np.array_equal(out[0], im) and dec.last_ycocg_err == 0,
+                  f"{label} decode of {im.shape[:2]} lossy")
+    paths["two_stage"] = read_counts(counters, "two_stage")
+    split_ms = sorted(timed(lambda: split.decompress(single))[1]
+                      for _ in range(5))
+    fused_ms = sorted(timed(lambda: codec.decompress(single))[1]
+                      for _ in range(5))
+    print(f"serving: two_stage lossless on 512x768 and 310x598, same bytes "
+          f"as the fused codec, cross-decodes both ways; decode 512x768 "
+          f"median of 5: two-stage {split_ms[2]:.2f} ms, fused "
+          f"{fused_ms[2]:.2f} ms; phase {time.perf_counter() - t0:.2f} s")
+    print(f"serving launches by path: {json.dumps(paths)}")
+    return dec_row, enc_row, paths
+
+
 def build_phase():
     """Build the kernels; print and check ptxas's report, Kernel 1's
     occupancy and the saturation shortcuts."""
@@ -793,6 +1178,9 @@ def main() -> None:
                                                                       odd)
     launches["gmm_cdf_from_pmap_logistic"] = logistic
     check(logistic > 0, "Kernel 1's logistic branch was not launched")
+    t0 = time.perf_counter()
+    dec_row, enc_row, paths = serving_phase(codec, params, kres, counters)
+    print(f"serving phase: {time.perf_counter() - t0:.2f} s")
     check("jax" not in sys.modules, "jax was imported")
     check(not any(m.startswith("llicti_tpu") for m in sys.modules),
           "the JAX package was imported")
@@ -820,6 +1208,13 @@ def main() -> None:
     # the finest Y slice encoded alone
     kernels[-1].update(steps=steps, y_slice_ms=kres["encode_slice"][1],
                        y_slice_bound_ms=kres["encode_slice"][3])
+    # the serving phase's batch figures (K = 8, one launch / one call) and
+    # launches per batch-container round trip
+    batch = paths["batch container"]
+    kernels[0]["batch_launches"] = (batch["encode"]["gmm_cdf_from_pmap"]
+                                    + batch["decode"]["gmm_cdf_from_pmap"])
+    kernels[3].update(dec_row, batch_launches=batch["decode"]["rans_decode"])
+    kernels[4].update(enc_row, batch_launches=batch["encode"]["rans_encode"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

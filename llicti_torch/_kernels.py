@@ -49,14 +49,17 @@ _SIGNATURES = {
     "llicti_cdf_pmap_occupancy": [_I, _I, _P],
     # mismatch count (out), stream
     "llicti_cdf_check_saturation": [_P, _P],
-    # cum, words, n_words, states, offset, syms, n, P, N, stream
-    "llicti_rans_decode": [_P, _P, _L, _P, _P, _P, _I, _I, _I, _P],
+    # cum, words, n_words, words_stride, states, offset, syms, n, P, N, K,
+    # stream
+    "llicti_rans_decode": [_P, _P, _L, _L, _P, _P, _P, _I, _I, _I, _I, _P],
+    # N, resident clusters (out)
+    "llicti_rans_decode_max_clusters": [_I, _P],
     # starts, freqs, plan (host), n_slices, steps, states, cursor, buf,
-    # cap, cursors, scratch, N, stream
+    # cap, cursors, scratch, N, K, stream
     "llicti_rans_encode_chain": [_P, _P, _P, _I, _L, _P, _P, _P, _I, _P,
-                                 _P, _I, _P],
-    # steps, N, scratch int32 words (out)
-    "llicti_rans_encode_scratch": [_L, _I, _P],
+                                 _P, _I, _I, _P],
+    # steps, N, K, scratch int32 words (out)
+    "llicti_rans_encode_scratch": [_L, _I, _I, _P],
 }
 
 

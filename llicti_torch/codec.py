@@ -1,17 +1,21 @@
-"""Lossless codec: the single-image compress / decompress round trip.
+"""Lossless codec: compress / decompress, one image or a batch, and the
+serving entry points.
 
-Port of the device-backend path of ``llicti_tpu/codec.py`` at K=1, for
-every configuration that codec codes: clr_joint_mode 0, 1 and 2 (with
+Port of the device-backend path of ``llicti_tpu/codec.py`` for every
+configuration that codec codes: clr_joint_mode 0, 1 and 2 (with
 clrjnt0seqmd), normal and logistic mixtures, and any model knob
 (activation incl. GDN1, mwsa_joint, combine_layers1toL, useprevlevNN).
+One device pipeline with a leading K axis serves both directions: K = 1
+is the single image, K > 1 the batch container (K images of one shape).
 Per scale, coarse to fine, and per band, one shared function
 (:meth:`Codec._band`) runs the interpolator conv on the bands decoded so
 far and, for each of the three colours, builds the quantised CDF table
-(Kernel 1) and either collects the encoder's (start, freq) or
-rANS-decodes the band (Kernel 2) and writes it back.  The encoder then
-encodes all 45 slices, in reverse decode order, into one stream with one
-chain call of the rANS encoder (Kernel 3).  clr_joint_mode 1 codes a
-zero channel in front of (Y, Co, Cg); with clrjnt0seqmd the trunk runs
+of all K images' pixels (Kernel 1) and either collects the encoder's
+(start, freq) or rANS-decodes the band of all K images in one launch
+(Kernel 2) and writes it back.  The encoder then encodes all 45 slices,
+in reverse decode order, into one stream per image with one chain call
+of the rANS encoder (Kernel 3) for the K images.  clr_joint_mode 1 codes
+a zero channel in front of (Y, Co, Cg); with clrjnt0seqmd the trunk runs
 once per colour on the band's layer-0 map plus the pixel's colours
 decoded so far.
 
@@ -19,13 +23,30 @@ Bit-exactness: encoder and decoder must compute identical CDF tables.
 Both run the same convs on conditioning tensors of identical shape,
 layout and values, with TF32 and cuDNN autotuning off and deterministic
 algorithms on, and the same CDF kernel; every int -> float conversion is
-``int.float() * INV255`` on both sides.
+``int.float() * INV255`` on both sides.  cuDNN may pick another
+algorithm for another batch size, so an image's tables in a batch of K
+need not equal its tables alone: a batch container decodes only through
+the batch path (:meth:`Codec.decompress_batch`), at its own K, and a
+single container only through the single path.  ``num_lanes``, like K,
+is matched between encoder and decoder; the container records neither.
+``two_stage`` runs the same convs and kernels on the same shapes, so its
+streams equal the fused codec's and each decodes the other's.
 
-Container (byte for byte the JAX package's device-backend format):
-  streams[0] = [header, minmax int16 x6, pad_int int16, raw x00 RGB, b''*5]
-               header = S u8 | last_h, last_w u16 | orig_h, orig_w u32 |
-                        head_words u32 (stream words of scales S-1..1)
-  streams[1] = [rANS blob: N lane states u32 | words u16, decode order]
+Containers (byte for byte the JAX package's device-backend formats):
+  single: streams[0] = [header, minmax int16 x6, pad_int int16,
+                        raw x00 RGB [1, lh, lw, 3], b''*5]
+            header = S u8 | last_h, last_w u16 | orig_h, orig_w u32 |
+                     head_words u32 (stream words of scales S-1..1)
+          streams[1] = [rANS blob: N lane states u32 | words u16, decode
+                        order]
+  batch:  streams[0] = [255, K, S u8 | last_h, last_w u16 | origs u32
+                        [K, 2], union minmax int16 x6, pad_int int16,
+                        raw x00 RGB [K, lh, lw, 3], b''*5]
+          streams[1 + k] = [image k's rANS blob]
+With ``size_bucket`` the image is replicate-padded to bucket multiples
+before coding; the header's pad flags, ``last_h``/``last_w``, minmax and
+raw band describe the padded image, ``orig`` the size the decoder crops
+to.
 """
 from __future__ import annotations
 
@@ -169,11 +190,14 @@ def scale_shapes(S: int, last_h: int, last_w: int,
 
 
 def words_cap(num_lanes: int, S: int, last_h: int, last_w: int,
-              pad_flags) -> int:
+              pad_flags, min_scl: int = 0) -> int:
     """Worst-case stream words of an image (each symbol emits at most one
-    word), from its shape alone."""
+    word), from its shape alone; ``min_scl=1`` gives the words that scales
+    S-1..1, the head of a two-stage decode, can read."""
     total = num_lanes
     for scl, h, w in scale_shapes(S, last_h, last_w, pad_flags):
+        if scl < min_scl:
+            continue
         padH, padW = pad_flags[scl]
         for b in range(3):
             ch, cw = band_coded_shape(h, w, b, padH, padW)
@@ -182,21 +206,39 @@ def words_cap(num_lanes: int, S: int, last_h: int, last_w: int,
     return -(-total // 65536) * 65536
 
 
-def header_group(S, last_h, last_w, orig_h, orig_w, minmax, pad_int,
-                 raw: bytes, head_words: int) -> List[bytes]:
-    header = (np.array([S], np.uint8).tobytes()
-              + np.array([last_h, last_w], np.uint16).tobytes()
-              + np.array([orig_h, orig_w], np.uint32).tobytes()
-              + np.array([head_words], np.uint32).tobytes())
+
+
+def _group(header: bytes, minmax, pad_int, raw: bytes) -> List[bytes]:
     return [header, np.array(minmax, np.int16).tobytes(),
             np.array([pad_int], np.int16).tobytes(), raw,
             b"", b"", b"", b"", b""]
 
 
+def header_group(S, last_h, last_w, orig_h, orig_w, minmax, pad_int,
+                 raw: bytes, head_words: int) -> List[bytes]:
+    """streams[0] of a single-image container."""
+    return _group(np.array([S], np.uint8).tobytes()
+                  + np.array([last_h, last_w], np.uint16).tobytes()
+                  + np.array([orig_h, orig_w], np.uint32).tobytes()
+                  + np.array([head_words], np.uint32).tobytes(),
+                  minmax, pad_int, raw)
+
+
+def batch_header_group(S, last_h, last_w, origs, minmax, pad_int,
+                       raw: bytes) -> List[bytes]:
+    """streams[0] of a batch container of ``len(origs)`` images."""
+    K = len(origs)
+    return _group(np.array([255, K, S], np.uint8).tobytes()
+                  + np.array([last_h, last_w], np.uint16).tobytes()
+                  + np.array(origs, np.uint32).reshape(K, 2).tobytes(),
+                  minmax, pad_int, raw)
+
+
 def host_header(rgb: np.ndarray, levels: Sequence[int]):
-    """(per-colour [min..., max...] of YCoCg, raw coarsest-x00 RGB band) of
-    a [1, H, W, 3] uint8 image, on the host."""
-    ycocg = rgb_int_to_ycocg_r_int_np(rgb[0])
+    """(per-colour [min..., max...] of YCoCg over all images, raw
+    coarsest-x00 RGB bands [K, lh, lw, 3]) of a [K, H, W, 3] uint8 batch,
+    on the host."""
+    ycocg = rgb_int_to_ycocg_r_int_np(rgb)
     minmax = ([int(ycocg[..., c].min()) for c in range(3)]
               + [int(ycocg[..., c].max()) for c in range(3)])
     stride = 2 ** (max(levels) + 1)
@@ -204,34 +246,83 @@ def host_header(rgb: np.ndarray, levels: Sequence[int]):
     return minmax, raw.astype(np.uint8)
 
 
-def parse_container(streams: List[List[bytes]], levels: Sequence[int]):
-    """-> (minmax, pad_flags, raw coarsest band [1, lh, lw, 3] uint8).
+def coded_shape(last_h: int, last_w: int, pad_flags) -> Tuple[int, int]:
+    """The (padded) image size that a header's last_h, last_w and pad flags
+    describe."""
+    _, h, w = scale_shapes(len(pad_flags), last_h, last_w, pad_flags)[-1]
+    return 2 * h - int(pad_flags[0][0]), 2 * w - int(pad_flags[0][1])
 
-    Raises ValueError on a header that does not describe an image of
-    ``levels`` (the size fixes the pad flags and the raw band's shape, and
-    colour ranges outside YCoCg-R's would make huge CDF tables)."""
+
+class Header(NamedTuple):
+    """A parsed container header: one image, or a batch of K."""
+    minmax: List[int]
+    pad_flags: List[Tuple[bool, bool]]
+    raw: np.ndarray               # coarsest x00 RGB, uint8 [K, lh, lw, 3]
+    origs: List[Tuple[int, int]]  # each image's size before padding
+    head_words: Optional[int]     # words of scales S-1..1 (single only)
+
+
+def _checked_header(levels, last_h, last_w, origs, group, head_words):
+    """The Header of streams[0] ``group``; ValueError unless it describes
+    K = len(origs) images of ``levels``: the pad flags must be those of the
+    padded size that last_h, last_w and the flags give, each original size
+    must fit inside it, the raw bands must have its shape, and the colour
+    ranges must be YCoCg-R's (wider ones would make huge CDF tables)."""
+    if len(group) < 4 or len(group[2]) != 2:
+        raise ValueError("inconsistent container header")
+    minmax = [int(v) for v in np.frombuffer(group[1], np.int16)]
+    pad_int = int(np.frombuffer(group[2], np.int16)[0])
+    pad_flags = unpack_pad_flags(pad_int, len(levels))
+    H, W = coded_shape(last_h, last_w, pad_flags)
+    stride = 2 ** (max(levels) + 1)
+    lo, hi = (0, -255, -255), (255, 255, 255)
+    if (len(minmax) != 6 or min(H, W) <= stride // 2
+            or (last_h, last_w) != (-(-H // stride), -(-W // stride))
+            or pad_int != pad_flags_for_shape(H, W, levels)[1]
+            or len(group[3]) != len(origs) * last_h * last_w * 3
+            or not all(1 <= oh <= H and 1 <= ow <= W for oh, ow in origs)
+            or not all(lo[c] <= minmax[c] <= minmax[3 + c] <= hi[c]
+                       for c in range(3))):
+        raise ValueError("inconsistent container header")
+    raw = np.frombuffer(group[3], np.uint8).reshape(
+        len(origs), last_h, last_w, 3)
+    return Header(minmax, pad_flags, raw, list(origs), head_words)
+
+
+def parse_container(streams: List[List[bytes]],
+                    levels: Sequence[int]) -> Header:
+    """The Header of a single-image container; ValueError on one that does
+    not describe an image of ``levels`` (see :func:`_checked_header`)."""
     if len(streams) != 2 or len(streams[0]) < 4 or len(streams[1]) != 1:
         raise ValueError("not a single-stream (device backend) container")
     hdr = streams[0][0]
     if len(hdr) < 13 or hdr[0] != len(levels):
         raise ValueError(f"header does not describe {len(levels)} scales")
     last_h, last_w = (int(v) for v in np.frombuffer(hdr[1:5], np.uint16))
-    orig_h, orig_w = (int(v) for v in np.frombuffer(hdr[5:13], np.uint32))
-    minmax = [int(v) for v in np.frombuffer(streams[0][1], np.int16)]
-    pad_int = int(np.frombuffer(streams[0][2], np.int16)[0])
-    stride = 2 ** (max(levels) + 1)
-    lo, hi = (0, -255, -255), (255, 255, 255)
-    if (len(minmax) != 6 or min(orig_h, orig_w) <= stride // 2
-            or (last_h, last_w) != (-(-orig_h // stride),
-                                    -(-orig_w // stride))
-            or pad_int != pad_flags_for_shape(orig_h, orig_w, levels)[1]
-            or len(streams[0][3]) != last_h * last_w * 3
-            or not all(lo[c] <= minmax[c] <= minmax[3 + c] <= hi[c]
-                       for c in range(3))):
-        raise ValueError("inconsistent container header")
-    raw = np.frombuffer(streams[0][3], np.uint8).reshape(
-        1, last_h, last_w, 3)
-    return minmax, unpack_pad_flags(pad_int, len(levels)), raw
+    orig = tuple(int(v) for v in np.frombuffer(hdr[5:13], np.uint32))
+    head = (int(np.frombuffer(hdr[13:17], np.uint32)[0])
+            if len(hdr) >= 17 else None)
+    return _checked_header(levels, last_h, last_w, [orig], streams[0], head)
+
+
+def parse_batch_container(streams: List[List[bytes]],
+                          levels: Sequence[int]) -> Header:
+    """The Header of a batch container, validated as
+    :func:`parse_container` validates a single one, plus its marker, K and
+    the one blob of each image."""
+    hdr = streams[0][0] if streams and streams[0] else b""
+    if len(hdr) < 3 or hdr[0] != 255:
+        raise ValueError("not a batch container")
+    K, S = hdr[1], hdr[2]
+    if S != len(levels):
+        raise ValueError(f"header does not describe {len(levels)} scales")
+    if (K < 1 or len(hdr) != 7 + 8 * K or len(streams) != 1 + K
+            or any(len(g) != 1 for g in streams[1:])):
+        raise ValueError("inconsistent batch container")
+    last_h, last_w = (int(v) for v in np.frombuffer(hdr[3:7], np.uint16))
+    origs = [tuple(int(v) for v in row) for row in
+             np.frombuffer(hdr[7:], np.uint32).reshape(K, 2)]
+    return _checked_header(levels, last_h, last_w, origs, streams[0], None)
 
 
 def serialize(streams: List[List[bytes]]) -> bytes:
@@ -273,11 +364,38 @@ def num_bytes(streams: List[List[bytes]]) -> int:
     return sum(len(s) for g in streams for s in g)
 
 
+class _Staged(NamedTuple):
+    """The host's part of an encode of K images of one (padded) shape."""
+    rgb: np.ndarray               # uint8 [K, H, W, 3]
+    origs: List[Tuple[int, int]]
+    minmax: List[int]             # union over the K images
+    raw: np.ndarray               # uint8 [K, lh, lw, 3]
+    pad_flags: List[Tuple[bool, bool]]
+    pad_int: int
+    last_h: int
+    last_w: int
+    cap: int                      # words of each image's stream buffer
+    ranges: List[Tuple[int, int]]
+
+
 class _DecodeCarry(NamedTuple):
     """Device state the rANS decode threads through the slices."""
-    words: torch.Tensor    # int32 [W]
-    states: torch.Tensor   # int64 [N]
-    offset: torch.Tensor   # int32 [1]
+    words: torch.Tensor    # int32 [K, W]
+    states: torch.Tensor   # int64 [K, N]
+    offset: torch.Tensor   # int32 [K]
+
+
+class _DecodeInputs(NamedTuple):
+    """A container's buffers on the device, ready to decode."""
+    hdr: Header
+    raw: torch.Tensor                  # uint8 [K, lh, lw, 3]
+    words: torch.Tensor                # int32 [K, W]
+    states: torch.Tensor               # int64 [K, N], updated in place
+    head: Optional[torch.Tensor]       # two-stage: the columns scales
+                                       # S-1..1 read
+    tail_ready: Optional[torch.cuda.Event]  # two-stage split copy: scale 0
+                                            # waits on it
+
 
 
 class Codec:
@@ -289,10 +407,21 @@ class Codec:
     ``device`` is the CUDA card unless the caller asks for ``"cpu"``;
     without a card, a CUDA codec raises rather than falling back.
     ``num_lanes`` (<= 1024) is an encoder/decoder-matched parameter: the
-    container does not record it.  Codes what the JAX ``Codec`` codes on
-    its device backend and raises ``NotImplementedError`` on the rest:
+    container does not record it.  ``size_bucket`` (a multiple of the
+    coarsest stride, 0 for off) replicate-pads every image to bucket
+    multiples, so a ragged set of images is coded at a few padded shapes
+    (``compiled_shapes``, the JAX package's name); the decoder crops back.
+    ``two_stage`` splits each decode at the finest scale: scales S-1..1 run
+    on the stream's first ``head_words`` words while the rest copies to
+    the card on a second CUDA stream.  Codes what the JAX ``Codec`` codes
+    on its device backend and raises ``NotImplementedError`` on the rest:
     subtract_mean, ycocg=False, clrchs < 3, a single mixture, and
     clrjnt0seqmd with GDN1 (which couples the colours' channel groups).
+
+    Accounting: after an encode, ``last_slice_bits_batch`` and
+    ``last_ideal_bits_batch`` hold one [scale][b*3+clr] table per image
+    (stream bits and the ideal bits of the coder's own tables), and
+    ``last_slice_bits`` / ``last_ideal_bits`` their elementwise sums.
     """
 
     serialize = staticmethod(serialize)
@@ -300,7 +429,8 @@ class Codec:
     num_bytes = staticmethod(num_bytes)
 
     def __init__(self, cfg: ModelConfig, params, device="cuda",
-                 num_lanes: int = 512):
+                 num_lanes: int = 512, size_bucket: int = 0,
+                 two_stage: bool = False):
         refused = [why for bad, why in (
             (cfg.clrchs != 3, "clrchs < 3"),
             (cfg.clr_joint_mode not in (0, 1, 2),
@@ -316,6 +446,13 @@ class Codec:
                 "does the JAX package's)")
         if not 1 <= num_lanes <= 1024:
             raise ValueError(f"num_lanes={num_lanes}: must be in 1..1024")
+        stride = 2 ** (max(cfg.dwtlevels) + 1)
+        if size_bucket < 0 or size_bucket % stride:
+            raise ValueError(f"size_bucket={size_bucket}: must be a "
+                             f"multiple of {stride}")
+        if two_stage and cfg.num_scales < 2:
+            raise ValueError("two_stage splits the decode at the finest "
+                             "scale: it needs two scales or more")
         self.cfg = cfg
         self.device = torch.device(device)
         if self.device.type == "cuda":
@@ -329,12 +466,47 @@ class Codec:
             torch.backends.cudnn.benchmark = False
             torch.backends.cudnn.deterministic = True
         self.N = num_lanes
+        self.size_bucket = size_bucket
+        self.two_stage = two_stage
+        self.compiled_shapes: set = set()
         self.logistic = cfg.distribution == "logistic"
         self.model = params_from_flax(params, cfg).to(self.device)
         self._pts: Dict[Tuple[int, int], torch.Tensor] = {}
+        self._shift = torch.tensor(_SHIFT, dtype=torch.int32).to(self.device)
+        self._side = (torch.cuda.Stream(self.device)
+                      if two_stage and self.device.type == "cuda" else None)
         self.last_slice_bits: Optional[List[List[int]]] = None
         self.last_ideal_bits: Optional[List[List[float]]] = None
+        self.last_slice_bits_batch: Optional[List[List[List[int]]]] = None
+        self.last_ideal_bits_batch: Optional[List[List[List[float]]]] = None
         self.last_ycocg_err: Optional[int] = None
+
+    # ---- host <-> card ---------------------------------------------------
+    def _host(self, arr: np.ndarray) -> torch.Tensor:
+        """``arr`` as a host tensor, pinned on a CUDA codec so that its copy
+        to the card is asynchronous."""
+        if self.device.type != "cuda":
+            return torch.from_numpy(np.require(arr, requirements=["C", "W"]))
+        # one copy into a pinned block, also for a read-only array (a
+        # header's raw band)
+        pinned = torch.empty(arr.shape, pin_memory=True, dtype=torch.from_numpy(
+            np.empty(0, arr.dtype)).dtype)
+        np.copyto(pinned.numpy(), arr)
+        return pinned
+
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        return self._host(arr).to(self.device, non_blocking=True)
+
+    def _fetch(self, tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
+        """Device tensors -> numpy arrays, after one synchronisation."""
+        if self.device.type == "cpu":
+            return [t.numpy() for t in tensors]
+        hosts = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                 for t in tensors]
+        for h, t in zip(hosts, tensors):
+            h.copy_(t, non_blocking=True)
+        torch.cuda.current_stream(self.device).synchronize()
+        return [h.numpy() for h in hosts]
 
     # ---- shared pieces ---------------------------------------------------
     def _pts3(self, ranges) -> List[torch.Tensor]:
@@ -344,22 +516,24 @@ class Codec:
         return [self._pts[r] for r in ranges]
 
     def _to_y(self, ycocg_int: torch.Tensor) -> torch.Tensor:
-        shift = torch.tensor(_SHIFT, dtype=torch.int32, device=self.device)
-        return (ycocg_int - shift).float() * INV255
+        return (ycocg_int - self._shift).float() * INV255
 
     def _band(self, y_lev: torch.Tensor, scl: int, b: int, padH: bool,
               padW: bool, ranges, pts3,
               dec: Optional[_DecodeCarry] = None):
-        """One band, shared by both directions: the conv, then per colour
-        the CDF table and either the encoder's (start, freq) (returned) or
-        the rANS decode written back into ``y_lev`` in place."""
+        """One band of K images, shared by both directions: the conv, then
+        per colour the CDF table of all K images' pixels and either the
+        encoder's (start, freq) ``[K, n]`` (returned) or the rANS decode of
+        the K images (one launch) written back into ``y_lev`` in place."""
         cfg = self.cfg
         c = cfg.cond_channels
+        K = y_lev.shape[0]
         ch, cw = band_coded_shape(y_lev.shape[1], y_lev.shape[2], b, padH,
                                   padW)
+        n = ch * cw
 
-        def coded_rows(t):  # [1, h, w, C] -> [ch * cw, C]
-            return t[0, :ch, :cw].reshape(ch * cw, -1).contiguous()
+        def coded_rows(t):  # [K, h, w, C] -> [K * ch * cw, C]
+            return t[:, :ch, :cw].reshape(K * n, -1).contiguous()
 
         y_cond = y_lev[..., :c * (b + 1)].contiguous()
         seq = seq_colours(cfg)
@@ -385,58 +559,19 @@ class Codec:
                 pts3[clr], pm, y2, M, std0, mean0, w0, upd, self.logistic,
                 sch, minv)
             if dec is None:
-                sf.append((start, freq))
+                sf.append((start.view(K, n), freq.view(K, n)))
                 continue
-            syms = rans_decode(cum, dec.words, dec.states, dec.offset)
-            vals = (syms.view(1, ch, cw, 1) + minv).float() * INV255
+            syms = rans_decode(cum.view(K, n, -1), dec.words, dec.states,
+                               dec.offset)
+            vals = (syms.view(K, ch, cw, 1) + minv).float() * INV255
             y_lev[..., sch] = pad_decoded_band(vals, b, padH, padW)[..., 0]
         return sf
 
     # ---- encode ----------------------------------------------------------
-    @torch.inference_mode()
-    def compress(self, rgb: np.ndarray) -> List[List[bytes]]:
-        """Encode one image: rgb ``[H, W, 3]`` or ``[1, H, W, 3]`` uint8."""
-        sf, cap, header = self.encode_inputs(rgb)
-        S = self.cfg.num_scales
-        # one chain, slices in encode order (the reverse of decode order)
-        starts = torch.cat([start for start, _ in reversed(sf)])
-        freqs = torch.cat([freq for _, freq in reversed(sf)])
-        offsets = torch.tensor(
-            np.cumsum([0] + [freq.shape[0] for _, freq in reversed(sf)]),
-            dtype=torch.int64)
-        states = torch.full((self.N,), RANS_L, dtype=torch.int64,
-                            device=self.device)
-        cursor = torch.zeros((1,), dtype=torch.int32, device=self.device)
-        buf = torch.zeros((cap,), dtype=torch.int32, device=self.device)
-        cursors = rans_encode_chain(starts, freqs, offsets, states, cursor,
-                                    buf)
-        ideal = torch.stack([
-            torch.where(freq > 0, 16.0 - torch.log2(
-                freq.clamp(min=1).float()), 0.0).sum()
-            for _, freq in sf])
-
-        cursors_np = cursors.cpu().numpy().astype(np.int64)
-        total = int(cursors_np[-1])
-        if total > cap:
-            raise RuntimeError(f"rANS stream of {total} words overran its "
-                               f"{cap}-word buffer")
-        blob = pack_stream_packed(buf[:total].cpu().numpy(),
-                                  states.cpu().numpy())
-        counts = np.diff(np.concatenate([[0], cursors_np]))[::-1]
-        self.last_slice_bits = [[int(v) * 16 for v in counts[s * 9:s * 9 + 9]]
-                                for s in range(S)]
-        ideal_np = ideal.cpu().numpy()
-        self.last_ideal_bits = [[float(v) for v in ideal_np[s * 9:s * 9 + 9]]
-                                for s in range(S)]
-        head_words = sum(sum(row) for row in self.last_slice_bits[:-1]) // 16
-        return [header_group(*header, head_words), [blob]]
-
-    @torch.inference_mode()
-    def encode_inputs(self, rgb: np.ndarray):
-        """The encoder's rANS inputs of one image, before any is encoded:
-        (the (start, freq) int32 pair of every slice in decode order, the
-        stream's word cap, the header fields but ``head_words``)."""
-        cfg = self.cfg
+    def _prepare(self, rgb: np.ndarray) -> Tuple[np.ndarray, int, int]:
+        """[H, W, 3] / [1, H, W, 3] uint8 -> (padded [1, H', W', 3], orig_h,
+        orig_w); with ``size_bucket`` replicate-padded to bucket
+        multiples."""
         rgb = np.asarray(rgb)
         if rgb.ndim == 3:
             rgb = rgb[None]
@@ -444,82 +579,395 @@ class Codec:
                 or rgb.shape[-1] != 3:
             raise ValueError(f"expected [H, W, 3] uint8, got {rgb.dtype} "
                              f"{rgb.shape}")
-        S = cfg.num_scales
+        oh, ow = rgb.shape[1], rgb.shape[2]
+        if self.size_bucket:
+            B = self.size_bucket
+            rgb = np.pad(rgb, ((0, 0), (0, -(-oh // B) * B - oh),
+                               (0, -(-ow // B) * B - ow), (0, 0)),
+                         mode="edge")
         H, W = rgb.shape[1], rgb.shape[2]
-        if min(H, W) <= 2 ** max(cfg.dwtlevels):
-            raise ValueError(f"{H}x{W} is too small for {S} scales")
-        pad_flags, pad_int = pad_flags_for_shape(H, W, cfg.dwtlevels)
-        minmax, raw = host_header(rgb, cfg.dwtlevels)
-        ranges = [clr_range(clr, minmax) for clr in range(3)]
-        pts3 = self._pts3(ranges)
+        if min(H, W) <= 2 ** max(self.cfg.dwtlevels):
+            raise ValueError(f"{H}x{W} is too small for "
+                             f"{self.cfg.num_scales} scales")
+        self.compiled_shapes.add((H, W))
+        return rgb, oh, ow
 
-        x = self._to_y(rgb_int_to_ycocg_r_int(
-            torch.from_numpy(np.ascontiguousarray(rgb)).to(self.device)))
+    def _stage(self, imgs: Sequence[np.ndarray]) -> _Staged:
+        """The host's part of an encode of images of one padded shape."""
+        if not len(imgs):
+            raise ValueError("no images")
+        prepped = [self._prepare(im) for im in imgs]
+        if len({p[0].shape for p in prepped}) != 1:
+            raise ValueError("a batch takes images of one shape (after "
+                             "size_bucket padding)")
+        rgb = np.concatenate([p[0] for p in prepped])
+        H, W = rgb.shape[1], rgb.shape[2]
+        levels = self.cfg.dwtlevels
+        pad_flags, pad_int = pad_flags_for_shape(H, W, levels)
+        minmax, raw = host_header(rgb, levels)
+        stride = 2 ** (max(levels) + 1)
+        last_h, last_w = -(-H // stride), -(-W // stride)
+        return _Staged(rgb, [(oh, ow) for _, oh, ow in prepped], minmax, raw,
+                       pad_flags, pad_int, last_h, last_w,
+                       words_cap(self.N, self.cfg.num_scales, last_h, last_w,
+                                 pad_flags),
+                       [clr_range(clr, minmax) for clr in range(3)])
+
+    def _encode_slices(self, rgb_dev: torch.Tensor, st: _Staged):
+        """Queue the convs and CDF tables of an encode of ``rgb_dev`` (uint8
+        [K, H, W, 3] on the card): the (start, freq) int32 ``[K, n]`` pair
+        of every slice, in decode order."""
+        cfg = self.cfg
+        S = cfg.num_scales
+        pts3 = self._pts3(st.ranges)
+        x = self._to_y(rgb_int_to_ycocg_r_int(rgb_dev))
         if clr_offset(cfg):
             x = torch.cat((torch.zeros_like(x[..., :1]), x), dim=-1)
         y_list, _, _ = lazy_dwt(x, cfg.dwtlevels, pad=True)
-        sf = []  # (start, freq) per slice, decode order
+        sf = []
         for scl in range(S - 1, -1, -1):
-            padH, padW = pad_flags[scl]
+            padH, padW = st.pad_flags[scl]
             for b in range(3):
-                sf += self._band(y_list[scl], scl, b, padH, padW, ranges,
+                sf += self._band(y_list[scl], scl, b, padH, padW, st.ranges,
                                  pts3)
-        last_h, last_w = y_list[S - 1].shape[1], y_list[S - 1].shape[2]
-        cap = words_cap(self.N, S, last_h, last_w, pad_flags)
-        return sf, cap, (S, last_h, last_w, H, W, minmax, pad_int,
-                         raw.tobytes())
+        return sf
+
+    def _encode_queue(self, rgb_dev: torch.Tensor, st: _Staged):
+        """Queue a whole encode of the K images of ``rgb_dev``: -> (cursors
+        int32 [K, 45] in encode order, states int64 [K, N], buf int32 [K,
+        cap], ideal bits float32 [K, 45] in decode order), on the device;
+        nothing synchronises."""
+        sf = self._encode_slices(rgb_dev, st)
+        K = rgb_dev.shape[0]
+        # one chain per image, slices in encode order (the reverse of
+        # decode order), all K chains in one call
+        starts = torch.cat([start for start, _ in reversed(sf)], dim=1)
+        freqs = torch.cat([freq for _, freq in reversed(sf)], dim=1)
+        offsets = torch.from_numpy(np.cumsum(
+            [0] + [freq.shape[1] for _, freq in reversed(sf)]))
+        states = torch.full((K, self.N), RANS_L, dtype=torch.int64,
+                            device=self.device)
+        cursor = torch.zeros((K,), dtype=torch.int32, device=self.device)
+        buf = torch.zeros((K, st.cap), dtype=torch.int32, device=self.device)
+        cursors = rans_encode_chain(starts, freqs, offsets, states, cursor,
+                                    buf)
+        ideal = torch.stack([
+            torch.where(freq > 0, 16.0 - torch.log2(
+                freq.clamp(min=1).float()), 0.0).sum(dim=1)
+            for _, freq in sf], dim=1)
+        return cursors, states, buf, ideal
+
+    def _slice_bits_table(self, cursors_row: np.ndarray) -> List[List[int]]:
+        """One image's per-slice cursors (encode order) -> its
+        [scale][b*3+clr] table of stream bits, coarsest scale first."""
+        counts = np.diff(np.concatenate(
+            [[0], cursors_row.astype(np.int64)]))[::-1]
+        return [[int(v) * 16 for v in counts[s * 9:s * 9 + 9]]
+                for s in range(self.cfg.num_scales)]
+
+    def _ideal_bits_table(self, ideal_row: np.ndarray) -> List[List[float]]:
+        return [[float(v) for v in ideal_row[s * 9:s * 9 + 9]]
+                for s in range(self.cfg.num_scales)]
+
+    def _encode(self, groups: Sequence[_Staged]):
+        """Encode staged groups: every group's upload and device work is
+        queued first, then one synchronisation fetches all cursors, states
+        and ideal bits, and one more all payloads.  -> per group, per image
+        (rANS blob, stream bits table, ideal bits table)."""
+        devs = [self._upload(st.rgb) for st in groups]
+        outs = [self._encode_queue(d, st) for d, st in zip(devs, groups)]
+        small = self._fetch([t for cursors, states, _, ideal in outs
+                             for t in (cursors, states, ideal)])
+        payloads = []
+        for st, (_, _, buf, _), cursors in zip(groups, outs, small[0::3]):
+            totals = [int(v) for v in cursors[:, -1]]
+            if max(totals) > st.cap:
+                raise RuntimeError(f"rANS stream of {max(totals)} words "
+                                   f"overran its {st.cap}-word buffer")
+            payloads += [buf[k, :t] for k, t in enumerate(totals)]
+        words = iter(self._fetch(payloads))
+        return [[(pack_stream_packed(next(words), states[k]),
+                  self._slice_bits_table(cursors[k]),
+                  self._ideal_bits_table(ideal[k]))
+                 for k in range(cursors.shape[0])]
+                for cursors, states, ideal in zip(small[0::3], small[1::3],
+                                                  small[2::3])]
+
+    def _account(self, per_image) -> None:
+        """Keep the accounting of an encode: one table per image, and their
+        elementwise sums."""
+        S = self.cfg.num_scales
+        act = [a for _, a, _ in per_image]
+        ideal = [i for _, _, i in per_image]
+        self.last_slice_bits_batch = act
+        self.last_ideal_bits_batch = ideal
+        self.last_slice_bits = [[sum(t[s][i] for t in act) for i in range(9)]
+                                for s in range(S)]
+        self.last_ideal_bits = [[sum(t[s][i] for t in ideal)
+                                 for i in range(9)] for s in range(S)]
+
+    @torch.inference_mode()
+    def compress(self, rgb: np.ndarray) -> List[List[bytes]]:
+        """Encode one image: rgb ``[H, W, 3]`` or ``[1, H, W, 3]`` uint8.
+        Fills the accounting tables (``*_batch`` with one table)."""
+        return self.compress_many([rgb])[0]
+
+    @torch.inference_mode()
+    def compress_many(self, imgs: Sequence[np.ndarray]
+                      ) -> List[List[List[bytes]]]:
+        """Pipelined encode of several images, each into its own
+        single-image container, byte-equal to what :meth:`compress` gives:
+        the host work of all images first, then every upload (pinned,
+        asynchronous) and every image's device work, then one
+        synchronisation for all cursors, states and ideal bits and one for
+        all payloads.  The accounting keeps one table per image."""
+        groups = [self._stage([im]) for im in imgs]
+        per = [g[0] for g in self._encode(groups)]
+        self._account(per)
+        S = self.cfg.num_scales
+        return [[header_group(S, st.last_h, st.last_w, *st.origs[0],
+                              st.minmax, st.pad_int, st.raw.tobytes(),
+                              sum(sum(row) for row in act[:-1]) // 16),
+                 [blob]]
+                for st, (blob, act, _) in zip(groups, per)]
+
+    @torch.inference_mode()
+    def compress_batch(self, imgs: Sequence[np.ndarray]) -> List[List[bytes]]:
+        """Encode K <= 254 images of one shape (after ``size_bucket``
+        padding) into one batch container: one K-batched pass, each image
+        with its own lanes and stream, CDF ranges the union over the batch.
+        Decodes only through :meth:`decompress_batch`."""
+        if not 1 <= len(imgs) <= 254:
+            raise ValueError(f"a batch holds 1..254 images, got {len(imgs)}")
+        st = self._stage(imgs)
+        per = self._encode([st])[0]
+        self._account(per)
+        return ([batch_header_group(self.cfg.num_scales, st.last_h,
+                                    st.last_w, st.origs, st.minmax,
+                                    st.pad_int, st.raw.tobytes())]
+                + [[blob] for blob, _, _ in per])
+
+    @torch.inference_mode()
+    def encode_inputs(self, imgs):
+        """The encoder's rANS inputs before any is encoded, of one image
+        ``[H, W, 3]`` or of a list of images of one shape: (the (start,
+        freq) int32 ``[K, n]`` pair of every slice in decode order, the
+        word cap of each image's stream)."""
+        st = self._stage([imgs] if isinstance(imgs, np.ndarray) else imgs)
+        return self._encode_slices(self._upload(st.rgb), st), st.cap
+
+    def prepare_encode(self, rgb: np.ndarray):
+        """Stage one image on the card; returns a closure whose call queues
+        the whole encode and returns its device tensors (cursors int32 [1,
+        45] in encode order, states int64 [1, N], buf int32 [1, cap], ideal
+        bits float32 [1, 45]).  Everything shape-derived is built here, so
+        the call copies nothing between host and card and never
+        synchronises."""
+        st = self._stage([rgb])
+        rgb_dev = self._upload(st.rgb)
+        self._pts3(st.ranges)
+        self._settle()
+
+        def encode():
+            with torch.inference_mode():
+                return self._encode_queue(rgb_dev, st)
+
+        return encode
+
+    def _settle(self) -> None:
+        """Wait for the staging copies of a resident closure."""
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
 
     # ---- decode ----------------------------------------------------------
+    def _decode_stage(self, blobs: Sequence[bytes]):
+        """Unpack K streams on the host: (words int32 [K, W], each row
+        zero-padded to the longest stream, lane states int64 [K, N])."""
+        unpacked = [unpack_stream(b, self.N) for b in blobs]
+        words = np.zeros((len(blobs), max(w.size for _, w in unpacked)),
+                         np.int32)
+        for k, (_, w) in enumerate(unpacked):
+            words[k, :w.size] = w
+        return words, np.stack([s for s, _ in unpacked]).astype(np.int64)
+
+    def _head_width(self, hdr: Header, W: int) -> int:
+        """Words of each row that scales S-1..1 read: a single container
+        records them (header byte 13); a batch's are bounded by the coarse
+        scales' worst case, as the JAX package bounds them."""
+        if hdr.head_words is not None:
+            return min(W, hdr.head_words)
+        _, lh, lw, _ = hdr.raw.shape
+        return min(W, words_cap(self.N, self.cfg.num_scales, lh, lw,
+                                hdr.pad_flags, min_scl=1))
+
+    def _decode_upload(self, hdr: Header, words: np.ndarray,
+                       states: np.ndarray, split: bool) -> _DecodeInputs:
+        """The decode's buffers on the card, copied asynchronously from
+        pinned memory.  Two-stage: the coarse scales read the head columns
+        of ``words``; with ``split`` on a card, the columns after the head
+        copy on a second stream, which scale 0 waits on."""
+        raw, st = self._upload(hdr.raw), self._upload(states)
+        if not self.two_stage:
+            return _DecodeInputs(hdr, raw, self._upload(words), st, None,
+                                 None)
+        K, W = words.shape
+        hw = self._head_width(hdr, W)
+        ready = None
+        if split and self._side is not None:
+            dev = torch.empty((K, W), dtype=torch.int32, device=self.device)
+            dev[:, :hw].copy_(self._host(words[:, :hw]), non_blocking=True)
+            self._side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(self._side):
+                dev[:, hw:].copy_(self._host(words[:, hw:]),
+                                  non_blocking=True)
+                ready = self._side.record_event()
+        else:
+            dev = self._upload(words)
+        return _DecodeInputs(hdr, raw, dev, st, dev[:, :hw], ready)
+
+    def _decode_queue(self, d: _DecodeInputs):
+        """Queue a whole decode of K images: -> (YCoCg int32, RGB uint8),
+        both [K, H, W, 3] at the padded size, on the device; nothing
+        synchronises."""
+        cfg = self.cfg
+        c = cfg.cond_channels
+        S = cfg.num_scales
+        hdr = d.hdr
+        ranges = [clr_range(clr, hdr.minmax) for clr in range(3)]
+        pts3 = self._pts3(ranges)
+        offset = torch.zeros((d.words.shape[0],), dtype=torch.int32,
+                             device=self.device)
+        off = clr_offset(cfg)
+        y_lev = None
+        for scl in range(S - 1, -1, -1):
+            if scl == S - 1:
+                x00 = self._to_y(rgb_int_to_ycocg_r_int(d.raw))
+                lo, hi = off, off + 3
+            else:
+                x00 = interleave_scale(y_lev, c,
+                                       int(hdr.pad_flags[scl + 1][0]),
+                                       int(hdr.pad_flags[scl + 1][1]))
+                lo, hi = 0, c
+            y_lev = torch.zeros(x00.shape[:3] + (4 * c,),
+                                dtype=torch.float32, device=self.device)
+            y_lev[..., lo:hi] = x00
+            words = d.words
+            if d.head is not None and scl > 0:
+                words = d.head
+            elif d.tail_ready is not None:
+                torch.cuda.current_stream(self.device).wait_event(
+                    d.tail_ready)
+            carry = _DecodeCarry(words, d.states, offset)
+            padH, padW = hdr.pad_flags[scl]
+            for b in range(3):
+                self._band(y_lev, scl, b, padH, padW, ranges, pts3, carry)
+
+        crop_h, crop_w = int(hdr.pad_flags[0][0]), int(hdr.pad_flags[0][1])
+        y_c = interleave_scale(y_lev, c, crop_h, crop_w)
+        ycocg = (torch.round(y_c[..., off:off + 3] * 255.0).to(torch.int32)
+                 + self._shift)
+        return ycocg, ycocg_r_int_to_rgb_int(ycocg).to(torch.uint8)
+
+    def _dispatch(self, streams: List[List[bytes]]):
+        hdr = parse_container(streams, self.cfg.dwtlevels)
+        words, states = self._decode_stage([streams[1][0]])
+        ycocg, rgb = self._decode_queue(
+            self._decode_upload(hdr, words, states, split=True))
+        return ycocg, rgb, hdr
+
+    @torch.inference_mode()
+    def decompress_dispatch(self, streams: List[List[bytes]]):
+        """Queue one image's decode; -> (RGB uint8 [1, H, W, 3] on the
+        device at the padded size, orig_h, orig_w).  Nothing synchronises,
+        so several images' decodes can be queued and fetched together."""
+        _, rgb, hdr = self._dispatch(streams)
+        return (rgb,) + hdr.origs[0]
+
     @torch.inference_mode()
     def decompress(self, streams: List[List[bytes]],
                    xorg: Optional[np.ndarray] = None) -> np.ndarray:
-        """Decode a container back to ``[1, H, W, 3]`` uint8 RGB.
+        """Decode a single-image container back to ``[1, H, W, 3]`` uint8
+        RGB.
 
         ``xorg``: the original image, optional; when given, the decoded
         YCoCg integers (before the inverse colour transform) are checked
         against its transform and the largest error is kept in
         ``last_ycocg_err``.
         """
-        cfg = self.cfg
-        c = cfg.cond_channels
-        S = cfg.num_scales
-        minmax, pad_flags, raw = parse_container(streams, cfg.dwtlevels)
-        ranges = [clr_range(clr, minmax) for clr in range(3)]
-        pts3 = self._pts3(ranges)
-        states_np, words_np = unpack_stream(streams[1][0], self.N)
-        dec = _DecodeCarry(
-            words=torch.from_numpy(words_np).to(self.device),
-            states=torch.from_numpy(states_np.astype(np.int64)).to(
-                self.device),
-            offset=torch.zeros((1,), dtype=torch.int32, device=self.device))
-
-        off = clr_offset(cfg)
-        y_lev = None
-        for scl in range(S - 1, -1, -1):
-            if scl == S - 1:
-                x00 = self._to_y(rgb_int_to_ycocg_r_int(
-                    torch.from_numpy(raw.copy()).to(self.device)))
-                lo, hi = off, off + 3
-            else:
-                x00 = interleave_scale(y_lev, c, int(pad_flags[scl + 1][0]),
-                                       int(pad_flags[scl + 1][1]))
-                lo, hi = 0, c
-            y_lev = torch.zeros(x00.shape[:3] + (4 * c,),
-                                dtype=torch.float32, device=self.device)
-            y_lev[..., lo:hi] = x00
-            padH, padW = pad_flags[scl]
-            for b in range(3):
-                self._band(y_lev, scl, b, padH, padW, ranges, pts3, dec)
-
-        crop_h, crop_w = int(pad_flags[0][0]), int(pad_flags[0][1])
-        y_c = interleave_scale(y_lev, c, crop_h, crop_w)
-        shift = torch.tensor(_SHIFT, dtype=torch.int32, device=self.device)
-        ycocg = (torch.round(y_c[..., off:off + 3] * 255.0).to(torch.int32)
-                 + shift)
-        rgb = ycocg_r_int_to_rgb_int(ycocg).to(torch.uint8)
+        ycocg, rgb, hdr = self._dispatch(streams)
+        out = self._fetch([rgb])[0]
         if xorg is not None:
-            xorg = np.asarray(xorg).reshape(ycocg.shape)
-            org = rgb_int_to_ycocg_r_int(torch.from_numpy(
-                np.ascontiguousarray(xorg)).to(self.device))
-            self.last_ycocg_err = int((ycocg - org).abs().max())
-        return rgb.cpu().numpy()
+            self.last_ycocg_err = self._ycocg_err(ycocg, xorg)
+        oh, ow = hdr.origs[0]
+        return out[:, :oh, :ow]
+
+    def _ycocg_err(self, ycocg: torch.Tensor, xorg: np.ndarray) -> int:
+        """Largest |decoded YCoCg - transform of xorg|, xorg replicate-
+        padded to the coded size as the encoder padded it."""
+        xorg = np.asarray(xorg)
+        xorg = xorg.reshape((-1,) + xorg.shape[-3:])
+        H, W = ycocg.shape[1], ycocg.shape[2]
+        xpad = np.pad(xorg, ((0, 0), (0, H - xorg.shape[1]),
+                             (0, W - xorg.shape[2]), (0, 0)), mode="edge")
+        org = rgb_int_to_ycocg_r_int(self._upload(xpad))
+        return int((ycocg - org).abs().max())
+
+    @torch.inference_mode()
+    def decompress_many(self, streams_list: Sequence[List[List[bytes]]]
+                        ) -> List[np.ndarray]:
+        """Pipelined decode of several single-image containers: every
+        header parse and stream unpack first, then every upload (pinned,
+        asynchronous), then every image's device work, then one
+        synchronisation for all images."""
+        hdrs = [parse_container(s, self.cfg.dwtlevels) for s in streams_list]
+        staged = [self._decode_stage([s[1][0]]) for s in streams_list]
+        inputs = [self._decode_upload(h, w, st, split=True)
+                  for h, (w, st) in zip(hdrs, staged)]
+        outs = self._fetch([self._decode_queue(d)[1] for d in inputs])
+        return [o[:, :h.origs[0][0], :h.origs[0][1]]
+                for o, h in zip(outs, hdrs)]
+
+    def _resident(self, hdr: Header, blobs: Sequence[bytes]):
+        """Stage a container on the card and return the closure that
+        decodes it: -> RGB uint8 [K, H, W, 3] at the padded size."""
+        words, states = self._decode_stage(blobs)
+        d = self._decode_upload(hdr, words, states, split=False)
+        self._pts3([clr_range(clr, hdr.minmax) for clr in range(3)])
+        self._settle()
+
+        def decode():
+            with torch.inference_mode():
+                # the decode updates the lane states in place
+                return self._decode_queue(
+                    d._replace(states=d.states.clone()))[1]
+
+        return decode
+
+    def prepare_decode(self, streams: List[List[bytes]]):
+        """Stage a single-image container on the card; returns a closure
+        whose call queues its decode and returns the device RGB [1, H, W,
+        3] (padded size).  Everything shape-derived (stream buffers,
+        sampling grids, the two-stage head) is built here, so the call
+        copies nothing between host and card and never synchronises."""
+        return self._resident(parse_container(streams, self.cfg.dwtlevels),
+                              [streams[1][0]])
+
+    def prepare_decode_batch(self, streams: List[List[bytes]]):
+        """:meth:`prepare_decode` for a batch container: the closure
+        returns the device RGB [K, H, W, 3]."""
+        return self._resident(
+            parse_batch_container(streams, self.cfg.dwtlevels),
+            [g[0] for g in streams[1:]])
+
+    @torch.inference_mode()
+    def decompress_batch(self, streams: List[List[bytes]]
+                         ) -> List[np.ndarray]:
+        """Decode a batch container -> K ``[H, W, 3]`` uint8 images, each
+        cropped to its original size; each slice of the K images is one
+        decode launch."""
+        hdr = parse_batch_container(streams, self.cfg.dwtlevels)
+        words, states = self._decode_stage([g[0] for g in streams[1:]])
+        _, rgb = self._decode_queue(
+            self._decode_upload(hdr, words, states, split=False))
+        out = self._fetch([rgb])[0]
+        return [out[k, :oh, :ow] for k, (oh, ow) in enumerate(hdr.origs)]

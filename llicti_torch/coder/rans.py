@@ -11,11 +11,15 @@ image carries one N*4-byte state flush.
 :func:`rans_decode` decodes one slice (one launch);
 :func:`rans_encode_chain` encodes an image's whole chain of slices in one
 call (two launches), and :func:`rans_encode` is its chain of one slice.
-On CUDA tensors they launch ``csrc/rans.cu``, on CPU tensors they run the
-plain versions, which loop over steps in Python with int64 tensors masked
-to 32 bits (torch's uint32 has too few ops).  All update the carried
-state tensors in place: ``states`` int64 ``[N]`` holding uint32 values,
-``offset`` / ``cursor`` int32 ``[1]``.
+Both also take a batch of K images of one shape (the batch container):
+every tensor gains a leading K axis, each image keeps its own lanes and
+stream, and the K images still cost one decode launch a slice and one
+encode call a chain.  On CUDA tensors they launch ``csrc/rans.cu``, on
+CPU tensors they run the plain versions, which loop over images and steps
+in Python with int64 tensors masked to 32 bits (torch's uint32 has too
+few ops).  All update the carried state tensors in place: ``states``
+int64 ``[N]`` (``[K, N]``) holding uint32 values, ``offset`` / ``cursor``
+int32 ``[1]`` (``[K]``).
 """
 from __future__ import annotations
 
@@ -33,14 +37,18 @@ MAX_LANES = 1024  # the decode's cluster holds at most 1024 threads
 MAX_SLICES = 1024  # an encode chain's offsets fit the kernels' parameters
 
 
-def _check_carry(states, pos, name):
-    if states.dtype != torch.int64 or states.dim() != 1:
-        raise ValueError("states must be int64 [N]")
-    if not 1 <= states.shape[0] <= MAX_LANES:
-        raise ValueError(f"N={states.shape[0]} lanes: the kernels take "
+def _check_carry(states, pos, name, batched: bool):
+    """states int64 [N] with ``pos`` int32 [1], or [K, N] with [K]."""
+    if states.dtype != torch.int64 or states.dim() != 1 + batched:
+        raise ValueError(f"states must be int64 "
+                         f"{'[K, N]' if batched else '[N]'}")
+    if not 1 <= states.shape[-1] <= MAX_LANES:
+        raise ValueError(f"N={states.shape[-1]} lanes: the kernels take "
                          f"1..{MAX_LANES}")
-    if pos.dtype != torch.int32 or pos.shape != (1,):
-        raise ValueError(f"{name} must be int32 [1]")
+    K = states.shape[0] if batched else 1
+    if K < 1 or pos.dtype != torch.int32 or pos.shape != (K,):
+        raise ValueError(f"{name} must be int32 [{'K' if batched else 1}], "
+                         "K >= 1")
 
 
 def _check_tensors(device, **tensors):
@@ -56,7 +64,12 @@ def _check_tensors(device, **tensors):
 # ---- decode ----------------------------------------------------------------
 
 def rans_decode_plain(cum, words, states, offset) -> torch.Tensor:
-    """Plain PyTorch version of :func:`rans_decode`."""
+    """Plain PyTorch version of :func:`rans_decode`; a batch decodes its
+    images one after the other."""
+    if cum.dim() == 3:
+        return torch.stack([rans_decode_plain(cum[k], words[k], states[k],
+                                              offset[k:k + 1])
+                            for k in range(cum.shape[0])])
     n, P = cum.shape
     N = states.shape[0]
     W = words.shape[0]
@@ -95,24 +108,40 @@ def rans_decode(cum: torch.Tensor, words: torch.Tensor, states: torch.Tensor,
     """Decode one slice of ``n`` symbols.
 
     cum ``[n, P]`` int32 tables (rows strictly increasing, last entry
-    2**16); words ``[W]`` int32 holding the stream's 16-bit words; states
-    int64 ``[N]`` and offset int32 ``[1]`` (the next word to read) are
-    read and updated in place.  Returns the symbols, int32 ``[n]``.
+    2**16); words ``[W]`` int32 holding the stream's 16-bit words (zeros
+    are read past its end); states int64 ``[N]`` and offset int32 ``[1]``
+    (the next word to read) are read and updated in place.  Returns the
+    symbols, int32 ``[n]``.
+
+    A batch of K images: cum ``[K, n, P]``, words ``[K, W]`` (each image's
+    stream zero-padded to W; the rows may be a column slice of a wider
+    tensor), states ``[K, N]``, offset ``[K]``; returns ``[K, n]``, still
+    in one launch.
     """
-    if cum.dtype != torch.int32 or cum.dim() != 2 or cum.shape[1] < 2:
-        raise ValueError("cum must be int32 [n, P >= 2]")
-    if words.dtype != torch.int32 or words.dim() != 1:
-        raise ValueError("words must be int32 [W]")
-    _check_carry(states, offset, "offset")
-    _check_tensors(cum.device, cum=cum, words=words, states=states,
-                   offset=offset)
+    batched = cum.dim() == 3
+    if cum.dtype != torch.int32 or cum.dim() != 2 + batched \
+            or cum.shape[-1] < 2:
+        raise ValueError("cum must be int32 [n, P >= 2] or [K, n, P >= 2]")
+    if words.dtype != torch.int32 or words.dim() != 1 + batched:
+        raise ValueError("words must be int32 "
+                         f"{'[K, W]' if batched else '[W]'}")
+    _check_carry(states, offset, "offset", batched)
+    if batched and not cum.shape[0] == words.shape[0] == states.shape[0]:
+        raise ValueError("cum, words and states differ in K")
+    _check_tensors(cum.device, cum=cum, states=states, offset=offset)
+    W = words.shape[-1]
+    stride = words.stride(0) if batched else W
+    if words.device != cum.device or (W > 1 and words.stride(-1) != 1) \
+            or stride < W:
+        raise ValueError("words must lie on cum's device, rows contiguous")
     if cum.device.type == "cpu":
         return rans_decode_plain(cum, words, states, offset)
-    n, P = cum.shape
-    syms = torch.empty((n,), dtype=torch.int32, device=cum.device)
+    K = cum.shape[0] if batched else 1
+    n, P = cum.shape[-2:]
+    syms = torch.empty(cum.shape[:-1], dtype=torch.int32, device=cum.device)
     err = _kernels.lib().llicti_rans_decode(
-        cum.data_ptr(), words.data_ptr(), words.shape[0], states.data_ptr(),
-        offset.data_ptr(), syms.data_ptr(), n, P, states.shape[0],
+        cum.data_ptr(), words.data_ptr(), W, stride, states.data_ptr(),
+        offset.data_ptr(), syms.data_ptr(), n, P, states.shape[-1], K,
         _kernels.stream_ptr(cum.device))
     _kernels.check(err, "llicti_rans_decode")
     if n > 0:
@@ -123,11 +152,25 @@ def rans_decode(cum: torch.Tensor, words: torch.Tensor, states: torch.Tensor,
 rans_decode.launches = 0
 
 
+def decode_max_clusters(N: int) -> int:
+    """Clusters of the decode kernel at ``N`` lanes that the card holds at
+    once: a batch of more images decodes in waves."""
+    clusters = ctypes.c_int(0)
+    _kernels.check(_kernels.lib().llicti_rans_decode_max_clusters(
+        N, ctypes.byref(clusters)), "llicti_rans_decode_max_clusters")
+    return clusters.value
+
+
 # ---- encode ----------------------------------------------------------------
 
 def rans_encode_chain_plain(starts, freqs, offsets, states, cursor,
                             buf) -> torch.Tensor:
-    """Plain PyTorch version of :func:`rans_encode_chain`."""
+    """Plain PyTorch version of :func:`rans_encode_chain`; a batch encodes
+    its chains one after the other."""
+    if starts.dim() == 2:
+        return torch.stack([rans_encode_chain_plain(
+            starts[k], freqs[k], offsets, states[k], cursor[k:k + 1], buf[k])
+            for k in range(starts.shape[0])])
     cursors = []
     for a, b in zip(offsets[:-1].tolist(), offsets[1:].tolist()):
         rans_encode_plain(starts[a:b], freqs[a:b], states, cursor, buf)
@@ -151,17 +194,23 @@ def rans_encode_chain(starts: torch.Tensor, freqs: torch.Tensor,
     was too small.  Returns the cursor after each slice, int32
     ``[n_slices]``.  On a CUDA tensor: two launches (lane chains, then
     placement) whatever the number of slices.
+
+    K chains of one plan (a batch of images of one shape): starts and
+    freqs ``[K, n_total]``, states ``[K, N]``, cursor ``[K]``, buf ``[K,
+    cap]``; returns ``[K, n_slices]``, still in two launches.
     """
+    batched = starts.dim() == 2
     for name, t in (("starts", starts), ("freqs", freqs), ("buf", buf)):
-        if t.dtype != torch.int32 or t.dim() != 1:
-            raise ValueError(f"{name} must be int32 [k]")
+        if t.dtype != torch.int32 or t.dim() != 1 + batched:
+            raise ValueError(f"{name} must be int32 "
+                             f"{'[K, k]' if batched else '[k]'}")
     if starts.shape != freqs.shape:
         raise ValueError("starts and freqs differ in shape")
     if (offsets.dtype != torch.int64 or offsets.dim() != 1
             or offsets.device.type != "cpu"):
         raise ValueError("offsets must be int64 [n_slices + 1] on the host")
     bounds = offsets.numpy()
-    n = starts.shape[0]
+    n = starts.shape[-1]
     if (len(bounds) < 2 or bounds[0] != 0 or bounds[-1] != n
             or (np.diff(bounds) < 0).any()):
         raise ValueError(f"offsets must rise from 0 to {n}")
@@ -170,28 +219,34 @@ def rans_encode_chain(starts: torch.Tensor, freqs: torch.Tensor,
         raise ValueError(f"{S} slices: one call takes at most {MAX_SLICES}")
     if n >= 1 << 31:
         raise ValueError(f"{n} symbols: one call takes fewer than 2^31")
-    _check_carry(states, cursor, "cursor")
+    _check_carry(states, cursor, "cursor", batched)
+    K = starts.shape[0] if batched else 1
+    if batched and not K == states.shape[0] == buf.shape[0]:
+        raise ValueError("starts, states and buf differ in K")
     _check_tensors(starts.device, starts=starts, freqs=freqs, states=states,
                    cursor=cursor, buf=buf)
     if starts.device.type == "cpu":
         return rans_encode_chain_plain(starts, freqs, offsets, states,
                                        cursor, buf)
-    N = states.shape[0]
+    N = states.shape[-1]
     ends = np.cumsum(-(-np.diff(bounds) // N))  # the chain's steps
     G = int(ends[-1])
     if G == 0:
-        return cursor.expand(S).clone()
+        return cursor[..., None].expand(cursor.shape + (S,)).clone() \
+            if batched else cursor.expand(S).clone()
     dev = starts.device
     plan = np.ascontiguousarray(np.concatenate([bounds, ends]), np.int32)
     lib = _kernels.lib()
     words = ctypes.c_longlong()
-    lib.llicti_rans_encode_scratch(G, N, ctypes.byref(words))
+    lib.llicti_rans_encode_scratch(G, N, K, ctypes.byref(words))
     scratch = torch.empty((words.value,), dtype=torch.int32, device=dev)
-    cursors = torch.empty((S,), dtype=torch.int32, device=dev)
+    cursors = torch.empty(starts.shape[:-1] + (S,), dtype=torch.int32,
+                          device=dev)
     err = lib.llicti_rans_encode_chain(
         starts.data_ptr(), freqs.data_ptr(), plan.ctypes.data, S, G,
-        states.data_ptr(), cursor.data_ptr(), buf.data_ptr(), buf.shape[0],
-        cursors.data_ptr(), scratch.data_ptr(), N, _kernels.stream_ptr(dev))
+        states.data_ptr(), cursor.data_ptr(), buf.data_ptr(), buf.shape[-1],
+        cursors.data_ptr(), scratch.data_ptr(), N, K,
+        _kernels.stream_ptr(dev))
     _kernels.check(err, "llicti_rans_encode_chain")
     rans_encode_chain.launches += 2
     return cursors

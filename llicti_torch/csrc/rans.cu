@@ -21,10 +21,12 @@
 // whole slice; the word a lane refills from is its rank among the lanes
 // that refill, a warp ballot plus an exclusive prefix over per-warp
 // counts.  Lane states and the word offset carry from slice to slice
-// through device memory.
+// through device memory.  A batch of K images (the batch container)
+// decodes its K slices in the same launch, one cluster per image.
 //
 // Encode: every slice's (start, freq) is known before the first one is
-// encoded, so an image's whole chain is one call of two launches.  What
+// encoded, so an image's whole chain is one call of two launches, and so
+// are the K chains of a batch (blockIdx.y is the image).  What
 // bounds it is the chain's dependent steps (sum of ceil(n_s / N), 1,161
 // for 512x768 at N = 1024), not its bytes (~11 MB, 3 us at 3.35 TB/s): a
 // lane's step is a compare, a select, a 32-bit division and a
@@ -74,16 +76,27 @@ constexpr int kCoarse = 7;
 //    known before this step ends), so the fine search covers one span of
 //    ~P / (kCoarse + 1) entries, one or two lines.
 // Block b holds lanes [b * blockDim, (b + 1) * blockDim); threads past N
-// hold no lane.
+// hold no lane.  Cluster k decodes image k of a batch: its rows
+// cum[k n, (k + 1) n), its word row words[k * words_stride, + n_words)
+// (zeros past it, as the JAX scan reads), states[k], offset[k] and
+// syms[k n, (k + 1) n).  A K above the card's resident clusters runs in
+// waves.
 __global__ void __cluster_dims__(kCluster, 1, 1)
     __launch_bounds__(kMaxLanes, 1)
     rans_decode_kernel(const int* __restrict__ cum,
                        const int* __restrict__ words, long long n_words,
+                       long long words_stride,
                        long long* __restrict__ states,
                        int* __restrict__ offset, int* __restrict__ syms,
                        int n, int P, int N) {
   __shared__ int warp_count[2][32];
   __shared__ int staged[2][kMaxLanes];
+  const long long img = blockIdx.x / kCluster;
+  cum += img * n * P;
+  words += img * words_stride;
+  states += img * N;
+  offset += img;
+  syms += img * n;
   cg::cluster_group cluster = cg::this_cluster();
   const int b = (int)cluster.block_rank();
   const int nt = blockDim.x;
@@ -211,7 +224,10 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
 //     completes its position.  Positions >= cap are dropped but counted
 //     (JAX's mode="drop").  The running counts at a slice's last step give
 //     its cursor.
-// The division stays xs / fs with r = xs - q * fs.
+// The division stays xs / fs with r = xs - q * fs.  The K chains of a
+// batch share the plan (their images have one shape) and each has its own
+// inputs, carry, output row and scratch region: blockIdx.y is the image in
+// both launches.
 
 constexpr int kAhead = 8;       // steps of a block; the next block in flight
 constexpr int kPlace = 256;     // threads (entries) of a placement block
@@ -229,6 +245,31 @@ struct ChainPlan {
 
 __host__ __device__ __forceinline__ long long padded_steps(long long G) {
   return (G + kStepRound - 1) / kStepRound * kStepRound;
+}
+
+// The scratch of one chain of G steps over N lanes, in int32 words:
+// entries uint2 [W Gp], then low uint32 [Gp / 2 * 32 W], then cursor0
+// int64, with W = ceil(N / 32) and Gp = G rounded up to kStepRound.  An
+// even count, so every image's region of a batch stays 8-byte aligned.
+__host__ __device__ __forceinline__ long long scratch_words(long long G,
+                                                           int N) {
+  const long long W = (N + 31) / 32, Gp = padded_steps(G);
+  return 2 * W * Gp + Gp / 2 * 32 * W + 2;
+}
+
+struct Scratch {
+  uint2* entries;
+  unsigned* low;
+  long long* cursor0;
+};
+
+// Image img's region of a batch's scratch.
+__device__ __forceinline__ Scratch scratch_of(int* scratch, long long G,
+                                              int N, long long img) {
+  const long long W = (N + 31) / 32, words = scratch_words(G, N);
+  int* base = scratch + img * words;
+  return {(uint2*)base, (unsigned*)(base + 2 * W * padded_steps(G)),
+          (long long*)(base + words - 2)};
 }
 
 // A load that the compiler keeps where it is written, so that the next
@@ -314,17 +355,25 @@ __device__ __forceinline__ void run_block(
 // Block b holds lanes 32 b ... 32 b + 31; lanes past N hold no symbol (no
 // step holds more than N).  entries: uint2 [W][padded G], warp-major in
 // emission order (row W - 1 - b); low: uint32 [padded G / 2][32 W].
+// blockIdx.y: the image, whose symbols start at img * plan.off[S].
 __global__ void __launch_bounds__(32)
     rans_encode_lanes_kernel(const int* __restrict__ starts,
                              const int* __restrict__ freqs,
                              const __grid_constant__ ChainPlan plan,
                              long long G, long long* __restrict__ states,
                              const int* __restrict__ cursor,
-                             long long* __restrict__ cursor0,
-                             uint2* __restrict__ entries,
-                             unsigned* __restrict__ low, int N) {
+                             int* __restrict__ scratch, int N) {
   extern __shared__ int smem[];
   const int S = plan.S;
+  const long long img = blockIdx.y;
+  starts += img * plan.off[S];
+  freqs += img * plan.off[S];
+  states += img * N;
+  cursor += img;
+  const Scratch sc = scratch_of(scratch, G, N, img);
+  long long* __restrict__ const cursor0 = sc.cursor0;
+  uint2* __restrict__ const entries = sc.entries;
+  unsigned* __restrict__ const low = sc.low;
   int* so = smem;          // offsets [S + 1]
   int* se = smem + S + 1;  // steps through each slice [S]
   for (int j = threadIdx.x; j <= S; j += 32) so[j] = plan.off[j];
@@ -377,14 +426,20 @@ __device__ __forceinline__ unsigned words_through(
 }
 
 __global__ void __launch_bounds__(kPlace)
-    rans_encode_place_kernel(const uint2* __restrict__ entries,
-                             const unsigned* __restrict__ low,
+    rans_encode_place_kernel(int* __restrict__ scratch,
                              const __grid_constant__ ChainPlan plan,
-                             const long long* __restrict__ cursor0,
                              long long G, int N, int* __restrict__ cursor,
                              int* __restrict__ cursors,
                              int* __restrict__ buf, int cap) {
   __shared__ int warp_sums[kPlace / 32];
+  const long long img = blockIdx.y;  // the image, as in the lanes kernel
+  const Scratch sc = scratch_of(scratch, G, N, img);
+  const uint2* __restrict__ entries = sc.entries;
+  const unsigned* __restrict__ low = sc.low;
+  const long long* __restrict__ cursor0 = sc.cursor0;
+  cursor += img;
+  cursors += img * plan.S;
+  buf += img * cap;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int W = (N + 31) >> 5, per = kPlace / W;  // steps per block
   const long long Gp = padded_steps(G);
@@ -437,43 +492,60 @@ __global__ void __launch_bounds__(kPlace)
 
 }  // namespace
 
+// Lanes per block of the decode: N / kCluster rounded up to whole warps
+// (<= 1024 / 8).
+static int decode_threads(int N) {
+  return ((N + kCluster - 1) / kCluster + 31) & ~31;
+}
+
+// One slice of K images: cum [K, n, P], words rows of n_words valid words
+// words_stride apart, states [K, N], offset [K], syms [K, n].
 extern "C" int llicti_rans_decode(const int* cum, const int* words,
-                                  long long n_words, long long* states,
-                                  int* offset, int* syms, int n, int P, int N,
-                                  void* stream) {
-  if (N < 1 || N > kMaxLanes || P < 2) return (int)cudaErrorInvalidValue;
+                                  long long n_words, long long words_stride,
+                                  long long* states, int* offset, int* syms,
+                                  int n, int P, int N, int K, void* stream) {
+  if (N < 1 || N > kMaxLanes || P < 2 || K < 1 || K > (1 << 20) ||
+      n_words < 0 || words_stride < n_words)
+    return (int)cudaErrorInvalidValue;
   if (n <= 0) return (int)cudaGetLastError();
-  // lanes per block: N / kCluster rounded up to whole warps (<= 1024 / 8)
-  const int threads = ((N + kCluster - 1) / kCluster + 31) & ~31;
-  rans_decode_kernel<<<kCluster, threads, 0, (cudaStream_t)stream>>>(
-      cum, words, n_words, states, offset, syms, n, P, N);
+  rans_decode_kernel<<<kCluster * K, decode_threads(N), 0,
+                       (cudaStream_t)stream>>>(cum, words, n_words,
+                                               words_stride, states, offset,
+                                               syms, n, P, N);
   return (int)cudaGetLastError();
 }
 
-// The scratch of a chain of G steps over N lanes, in int32 words:
-// entries uint2 [W Gp], then low uint32 [Gp / 2 * 32 W], then cursor0
-// int64, with W = ceil(N / 32) and Gp = G rounded up to kStepRound.
-__host__ __device__ __forceinline__ long long scratch_words(long long G,
-                                                           int N) {
-  const long long W = (N + 31) / 32, Gp = padded_steps(G);
-  return 2 * W * Gp + Gp / 2 * 32 * W + 2;
+// Clusters of the decode at N lanes that the card holds at once; a batch
+// of more images runs in waves.
+extern "C" int llicti_rans_decode_max_clusters(int N, int* clusters) {
+  if (N < 1 || N > kMaxLanes) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster);
+  cfg.blockDim = dim3(decode_threads(N));
+  // the cluster shape is the kernel's own (__cluster_dims__)
+  return (int)cudaOccupancyMaxActiveClusters(clusters, rans_decode_kernel,
+                                             &cfg);
 }
 
-extern "C" int llicti_rans_encode_scratch(long long G, int N,
+// Scratch of K chains of G steps over N lanes, in int32 words.
+extern "C" int llicti_rans_encode_scratch(long long G, int N, int K,
                                           long long* words) {
-  *words = scratch_words(G, N);
+  *words = K * scratch_words(G, N);
   return 0;
 }
 
 // plan: int32 [2 S + 1] in host memory, the offsets [S + 1] of the S
 // slices, then the chain's steps through each slice [S]; it reaches both
-// kernels as a parameter.  G: the chain's steps.  scratch: int32
-// [llicti_rans_encode_scratch(G, N)].  Launches nothing when G == 0.
+// kernels as a parameter.  G: the chain's steps.  K chains: starts and
+// freqs [K, off[S]], states [K, N], cursor [K], buf [K, cap], cursors
+// [K, S], scratch int32 [llicti_rans_encode_scratch(G, N, K)].  Launches
+// nothing when G == 0.
 extern "C" int llicti_rans_encode_chain(
     const int* starts, const int* freqs, const int* plan, int S, long long G,
     long long* states, int* cursor, int* buf, int cap, int* cursors,
-    int* scratch, int N, void* stream) {
-  if (N < 1 || N > kMaxLanes || S < 1 || S > kMaxSlices || G < 0)
+    int* scratch, int N, int K, void* stream) {
+  if (N < 1 || N > kMaxLanes || S < 1 || S > kMaxSlices || G < 0 || K < 1 ||
+      K > 65535)
     return (int)cudaErrorInvalidValue;
   if (G == 0) return (int)cudaGetLastError();
   ChainPlan p;
@@ -481,17 +553,15 @@ extern "C" int llicti_rans_encode_chain(
   for (int s = 0; s <= S; ++s) p.off[s] = plan[s];
   for (int s = 0; s < S; ++s) p.ends[s] = plan[S + 1 + s];
   const int W = (N + 31) / 32;
-  uint2* entries = (uint2*)scratch;
-  unsigned* low = (unsigned*)(scratch + 2 * W * padded_steps(G));
-  long long* cursor0 = (long long*)(scratch + scratch_words(G, N) - 2);
   const cudaStream_t st = (cudaStream_t)stream;
-  rans_encode_lanes_kernel<<<W, 32, (2 * S + 1) * sizeof(int), st>>>(
-      starts, freqs, p, G, states, cursor, cursor0, entries, low, N);
+  rans_encode_lanes_kernel<<<dim3(W, K), 32, (2 * S + 1) * sizeof(int),
+                             st>>>(starts, freqs, p, G, states, cursor,
+                                   scratch, N);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const long long per = kPlace / W;
-  rans_encode_place_kernel<<<(unsigned)((G + per - 1) / per), kPlace, 0,
-                             st>>>(entries, low, p, cursor0, G, N, cursor,
-                                   cursors, buf, cap);
+  rans_encode_place_kernel<<<dim3((unsigned)((G + per - 1) / per), K), kPlace,
+                             0, st>>>(scratch, p, G, N, cursor, cursors, buf,
+                                      cap);
   return (int)cudaGetLastError();
 }

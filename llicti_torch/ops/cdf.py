@@ -164,6 +164,10 @@ def gmm_cdf_from_pmap(points: torch.Tensor, pmap: torch.Tensor,
                                        upd, logistic, sym_ch, minv)
     n, CO = pmap.shape
     P = points.shape[0]
+    if n * P >= 1 << 31:
+        # a batch's rows (K images' pixels) stay below 2^31 table entries
+        raise ValueError(f"{n} rows x {P} points: one launch takes fewer "
+                         "than 2^31 table entries")
     cum = torch.empty((n, P), dtype=torch.int32, device=pmap.device)
     start = torch.empty((n,), dtype=torch.int32, device=pmap.device)
     freq = torch.empty((n,), dtype=torch.int32, device=pmap.device)

@@ -278,3 +278,134 @@ def test_wrappers_reject_bad_input():
         tr.rans_encode(words, words, states, off.long(), words)
     with pytest.raises(ValueError):
         tr.unpack_stream(b"\0" * 7, 2)
+
+
+@jax.jit
+def _jax_chain_batch(st_fr, states, buf):
+    """The JAX package's K-image encode chain (its codec's do_chain):
+    rans_encode_body_batch per slice on [K, ...] carries."""
+    cursor = jnp.zeros((states.shape[0],), jnp.int32)
+    cursors = []
+    for st, fr in st_fr:
+        buf, cursor, states = jr.rans_encode_body_batch(
+            st, fr, states, cursor, buf, states.shape[1])
+        cursors.append(cursor)
+    return buf, jnp.stack(cursors, axis=1), states
+
+
+def batch_chain_inputs(rng, K, sizes):
+    """K images' (start, freq) per slice in encode order, each slice as
+    [K, n] arrays: the images share the slice sizes (one shape) and differ
+    in their tables and symbols."""
+    per_image = [chain_inputs(rng, sizes) for _ in range(K)]
+    return [(np.stack([img[s][0] for img in per_image]),
+             np.stack([img[s][1] for img in per_image]))
+            for s in range(len(sizes))]
+
+
+@pytest.mark.parametrize("N,K,sizes", [
+    (16, 3, ((0, 0), (5, 0), (40, 7), (16, 0), (123, 20))),
+    (32, 2, ((31, 1), (0, 0), (200, 33))),
+    (8, 1, ((3, 0), (70, 2)))])
+def test_batched_encode_chain_matches_jax(N, K, sizes):
+    """rans_encode_chain on K chains (plain) against JAX's
+    rans_encode_body_batch over the same chain: identical words, per-slice
+    cursors and states per image; each image's row equals its chain
+    encoded alone by the 1-D call."""
+    rng = np.random.default_rng(200 + N + K)
+    st_fr = batch_chain_inputs(rng, K, sizes)
+    cap = sum(fr.shape[1] for _, fr in st_fr) + N
+    states = torch.full((K, N), tr.RANS_L, dtype=torch.int64)
+    cursor = torch.zeros((K,), dtype=torch.int32)
+    buf = torch.zeros((K, cap), dtype=torch.int32)
+    offsets = torch.from_numpy(np.cumsum([0] + [fr.shape[1]
+                                                for _, fr in st_fr]))
+    starts = torch.from_numpy(np.concatenate([st for st, _ in st_fr], 1))
+    freqs = torch.from_numpy(np.concatenate([fr for _, fr in st_fr], 1))
+    cursors = tr.rans_encode_chain(starts, freqs, offsets, states, cursor,
+                                   buf)
+    assert cursors.shape == (K, len(sizes)) and cursors.dtype == torch.int32
+
+    jbuf, jcurs, jst = _jax_chain_batch(
+        tuple((jnp.asarray(st), jnp.asarray(fr)) for st, fr in st_fr),
+        jnp.full((K, N), jr.RANS_L, jnp.uint32), jnp.zeros((K, cap),
+                                                           jnp.int32))
+    np.testing.assert_array_equal(cursors.numpy(), np.asarray(jcurs))
+    np.testing.assert_array_equal(cursor.numpy(), np.asarray(jcurs)[:, -1])
+    np.testing.assert_array_equal(states.numpy(), np.asarray(jst))
+    np.testing.assert_array_equal(buf.numpy(), np.asarray(jbuf))
+
+    for k in range(K):  # K = 1's batched call equals today's 1-D call
+        s1 = torch.full((N,), tr.RANS_L, dtype=torch.int64)
+        c1 = torch.zeros((1,), dtype=torch.int32)
+        b1 = torch.zeros((cap,), dtype=torch.int32)
+        cur1 = tr.rans_encode_chain(starts[k].contiguous(),
+                                    freqs[k].contiguous(), offsets, s1, c1,
+                                    b1)
+        assert torch.equal(cur1, cursors[k]) and torch.equal(s1, states[k])
+        assert torch.equal(b1, buf[k])
+
+
+@pytest.mark.parametrize("N,K", [(16, 3), (32, 1)])
+def test_batched_decode_matches_jax(N, K):
+    """rans_decode with [K, ...] carries (plain) against JAX's
+    rans_decode_body_batch, slice by slice over K streams of different
+    lengths zero-padded to the longest: identical symbols, states and
+    offsets; each image also equals its own 1-D decode."""
+    rng = np.random.default_rng(300 + N + K)
+    shapes = [(513, 257), (222, 513), (64, 33)]
+    images, blobs = [], []
+    for _ in range(K):
+        slices = []
+        for n, Lp in shapes:
+            cum = make_cum(rng, n, Lp, floor0=True)
+            slices.append((cum, sample_syms(rng, cum)))
+        images.append(slices)
+        blobs.append(port_encode(slices, N)[0])
+    unpacked = [tr.unpack_stream(b, N) for b in blobs]
+    W = max(w.size for _, w in unpacked)
+    assert len({w.size for _, w in unpacked}) == K  # ragged streams
+    words = np.zeros((K, W), np.int32)
+    for k, (_, w) in enumerate(unpacked):
+        words[k, :w.size] = w
+    states0 = np.stack([s for s, _ in unpacked])
+
+    states = torch.from_numpy(states0.astype(np.int64))
+    offset = torch.zeros((K,), dtype=torch.int32)
+    words_t = torch.from_numpy(words)
+    jst, joff = jnp.asarray(states0), jnp.zeros((K,), jnp.int32)
+    for s, (n, _) in enumerate(shapes):
+        cum = np.stack([img[s][0] for img in images])
+        got = tr.rans_decode(torch.from_numpy(cum), words_t, states, offset)
+        assert got.shape == (K, n)
+        jsyms, jst, joff = jr.rans_decode_body_batch(
+            jnp.asarray(cum), jnp.asarray(words), jst, joff, N, n)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(jsyms))
+        np.testing.assert_array_equal(
+            got.numpy(), np.stack([img[s][1] for img in images]))
+    np.testing.assert_array_equal(states.numpy(), np.asarray(jst))
+    np.testing.assert_array_equal(offset.numpy(), np.asarray(joff))
+    for k in range(K):
+        out, st, off, _ = port_decode(blobs[k], images[k], N)
+        assert torch.equal(st, states[k]) and off == int(offset[k])
+
+
+def test_batched_wrappers_reject_mismatched_k():
+    cum = torch.zeros((2, 4, 9), dtype=torch.int32)
+    words = torch.zeros((2, 5), dtype=torch.int32)
+    states = torch.full((2, 4), tr.RANS_L, dtype=torch.int64)
+    off = torch.zeros((2,), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        tr.rans_decode(cum, words[:1], states, off)
+    with pytest.raises(ValueError):
+        tr.rans_decode(cum, words, states, off[:1])
+    with pytest.raises(ValueError):
+        tr.rans_decode(cum, words[:, ::2], states, off)
+    st = torch.zeros((2, 10), dtype=torch.int32)
+    offsets = torch.tensor([0, 10])
+    with pytest.raises(ValueError):
+        tr.rans_encode_chain(st, st, offsets, states[:1], off[:1],
+                             torch.zeros((2, 16), dtype=torch.int32))
+    with pytest.raises(ValueError):
+        tr.rans_encode_chain(st, st, offsets, states, off,
+                             torch.zeros((16,), dtype=torch.int32))

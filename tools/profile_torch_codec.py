@@ -2,7 +2,8 @@
 """Round-trip times, container hash and a device profile of the port.
 
 Usage: python3 tools/profile_torch_codec.py [--tree DIR] [--runs 15]
-                                            [--no-profile]
+                                            [--no-profile] [--batch K]
+                                            [--two-stage] [--stages]
 
 Imports ``llicti_torch`` from ``DIR`` (default: this repository; give an
 unpacked older tree to compare two versions in one run) and round-trips
@@ -13,9 +14,18 @@ around work that ends in ``torch.cuda.synchronize()``, after one warm-up;
 min / median / max), Kernel 3's CUDA-event time and launches per encode
 (:func:`encode_kernel_ms`), and, unless ``--no-profile``, one ``torch.profiler``
 run of each direction: wall time, device busy time (the union of the
-kernels' intervals), idle share, and device time and launches per kernel
-group (convs, Kernel 1, 2, 3, other).  The last line is the card's name and
-power limit.
+kernels' intervals), idle share, device time and launches per kernel
+group (convs, Kernel 1, 2, 3, other), and the three costliest kernels of
+"other".  Trees with the serving path (not older ones) also give, with
+``--stages``, the median host ms of each stage of a single-image decode
+and encode (parse and unpack or host header, upload, queueing the device
+work, the final fetch with its wait for the card); with ``--batch K``,
+the times of ``compress_batch`` / ``decompress_batch`` of K images
+(seeds 42, 43, ...) and a profile of each and of the resident closures
+(``prepare_decode``, ``prepare_encode``, ``prepare_decode_batch``); with
+``--two-stage``, the decode times of a ``two_stage`` codec and the fused
+one in turns, and a profile of the two-stage decode.  The last line is
+the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -68,10 +78,8 @@ def encode_kernel_ms(codec, img, iters: int = 20):
     finally:
         setattr(cmod, name, fn)
     states, cursor, buf = calls[0][-3:]
-    N, cap = states.shape[0], buf.shape[0]
     carries = [(torch.full_like(states, 1 << 16), torch.zeros_like(cursor),
-                torch.zeros((cap,), dtype=torch.int32, device=buf.device))
-               for _ in range(iters + 1)]
+                torch.zeros_like(buf)) for _ in range(iters + 1)]
 
     def encode(carry):
         for args in calls:
@@ -101,6 +109,7 @@ def profile(fn, label: str) -> None:
         _, wall = timed(fn)
     spans, groups = [], {name: [0.0, 0] for name, _ in GROUPS}
     groups["other"] = [0.0, 0]
+    other = {}  # kernel name -> [ms, launches] within "other"
     for ev in prof.events():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -108,8 +117,13 @@ def profile(fn, label: str) -> None:
         name = ev.name.lower()
         key = next((g for g, keys in GROUPS
                     if any(k in name for k in keys)), "other")
-        groups[key][0] += (ev.time_range.end - ev.time_range.start) / 1e3
+        ms = (ev.time_range.end - ev.time_range.start) / 1e3
+        groups[key][0] += ms
         groups[key][1] += 1
+        if key == "other":
+            entry = other.setdefault(ev.name, [0.0, 0])
+            entry[0] += ms
+            entry[1] += 1
     busy, end = 0.0, float("-inf")
     for a, b in sorted(spans):  # union of the kernels' intervals
         if b > end:
@@ -120,6 +134,104 @@ def profile(fn, label: str) -> None:
           f"idle share {1 - busy / wall:.3f}")
     for key, (ms, count) in groups.items():
         print(f"profile {label}: {key}: {ms:.3f} ms, {count} kernels")
+    top = sorted(other.items(), key=lambda kv: -kv[1][0])[:3]
+    for name, (ms, count) in top:
+        print(f"profile {label}: other: {ms:.3f} ms in {count} x {name[:70]}")
+
+
+def medians(label: str, xs, per: int = 1) -> None:
+    print(f"{label} ms over {len(xs)} runs: min {min(xs):.2f}, median "
+          f"{statistics.median(xs):.2f}, max {max(xs):.2f}"
+          + (f"; median per image {statistics.median(xs) / per:.2f}"
+             if per > 1 else ""))
+
+
+def serving(codec, img, args) -> None:
+    """The batch container and the resident closures."""
+    from llicti_torch import synthetic_image
+    K = args.batch
+    imgs = [synthetic_image(512, 768, seed=42 + k) for k in range(K)]
+    bstreams = codec.compress_batch(imgs)
+    codec.decompress_batch(bstreams)
+    enc, dec = [], []
+    for _ in range(args.runs):
+        bstreams, ms = timed(lambda: codec.compress_batch(imgs))
+        enc.append(ms)
+        _, ms = timed(lambda: codec.decompress_batch(bstreams))
+        dec.append(ms)
+    medians(f"batch encode K={K}", enc, K)
+    medians(f"batch decode K={K}", dec, K)
+    streams = codec.compress(img)
+    closures = (("resident decode", codec.prepare_decode(streams)),
+                ("resident encode", codec.prepare_encode(img)),
+                (f"resident batch decode K={K}",
+                 codec.prepare_decode_batch(bstreams)))
+    for label, fn in closures:
+        fn()
+        medians(label, [timed(fn)[1] for _ in range(args.runs)])
+    if not args.no_profile:
+        profile(lambda: codec.compress_batch(imgs), f"batch encode K={K}")
+        profile(lambda: codec.decompress_batch(bstreams),
+                f"batch decode K={K}")
+        for label, fn in closures:
+            profile(fn, label)
+
+
+def stages(codec, img, args) -> None:
+    """Host ms of each stage of a single-image decode and encode, through
+    the codec's own stage functions (the order ``decompress`` and
+    ``compress`` call them in)."""
+    from llicti_torch import codec as cmod
+    streams = codec.compress(img)
+    times = {}
+
+    def lap(key, t0):
+        t = time.perf_counter()
+        times.setdefault(key, []).append(1e3 * (t - t0))
+        return t
+
+    for _ in range(args.runs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        hdr = cmod.parse_container(streams, codec.cfg.dwtlevels)
+        words, states = codec._decode_stage([streams[1][0]])
+        t = lap("decode: parse and unpack", t)
+        d = codec._decode_upload(hdr, words, states, split=True)
+        t = lap("decode: upload", t)
+        _, rgb = codec._decode_queue(d)
+        t = lap("decode: queue", t)
+        codec._fetch([rgb])
+        lap("decode: fetch (waits for the card)", t)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        st = codec._stage([img])
+        t = lap("encode: host header", t)
+        dev = codec._upload(st.rgb)
+        t = lap("encode: upload", t)
+        cursors, lanes, buf, ideal = codec._encode_queue(dev, st)
+        t = lap("encode: queue", t)
+        small = codec._fetch([cursors, lanes, ideal])
+        codec._fetch([buf[0, :int(small[0][0, -1])]])
+        lap("encode: fetches (wait for the card)", t)
+    for key, xs in times.items():
+        print(f"stage {key}: median {statistics.median(xs):.3f} ms")
+
+
+def two_stage(codec, img, args) -> None:
+    """Decode times of a two_stage codec and the fused one, in turns."""
+    from llicti_torch import Codec, ModelConfig, load_npz
+    split = Codec(ModelConfig(), load_npz(), device="cuda", num_lanes=codec.N,
+                  two_stage=True)
+    streams = codec.compress(img)
+    split.decompress(streams)
+    fused, staged = [], []
+    for _ in range(args.runs):
+        fused.append(timed(lambda: codec.decompress(streams))[1])
+        staged.append(timed(lambda: split.decompress(streams))[1])
+    medians("fused decode (in turns)", fused)
+    medians("two-stage decode (in turns)", staged)
+    if not args.no_profile:
+        profile(lambda: split.decompress(streams), "two-stage decode")
 
 
 def main() -> None:
@@ -128,6 +240,9 @@ def main() -> None:
         os.path.abspath(__file__))))
     ap.add_argument("--runs", type=int, default=15)
     ap.add_argument("--no-profile", action="store_true")
+    ap.add_argument("--batch", type=int, default=0)
+    ap.add_argument("--two-stage", action="store_true")
+    ap.add_argument("--stages", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_codec: CUDA is not available")
@@ -160,6 +275,12 @@ def main() -> None:
         profile(lambda: codec.compress(img), "encode")
         streams = codec.compress(img)
         profile(lambda: codec.decompress(streams), "decode")
+    if args.stages:
+        stages(codec, img, args)
+    if args.batch:
+        serving(codec, img, args)
+    if args.two_stage:
+        two_stage(codec, img, args)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
