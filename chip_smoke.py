@@ -60,7 +60,23 @@ Phases, each of which raises on failure:
      torch.profiler trace with no Memcpy HtoD/DtoH, then ms an image over
      30 back-to-back calls; (e) size_bucket=64 on four ragged sizes; (f)
      two_stage on 512x768 and 310x598, cross-decoded with the fused codec
-     both ways.  Wall time and peak memory of each part are printed.
+     both ways.  Wall time and peak memory of each part are printed;
+  10. the slice of the rate forward and the host backend, each part with
+     the launch counts set to 0 just before it and read just after: (a) C2,
+     the flagship container's num_bytes within max(0.1 %, 16 B) of the JAX
+     package's 861,767 and its sha256 PR 2's (3cab0436...9336cc, checked in
+     phase 5); (b) C1, a new codec's round trip with all four cuDNN / TF32
+     flags flipped after it is built, again between compress and
+     decompress and again before its resident closures: the same sha256,
+     byte-exact decode and closures, the flags read back as the caller set
+     them after every call; (c) backend="host" round trips of 512x768 and
+     310x598, lossless with last_ycocg_err 0 and no hand-kernel launch, its
+     bytes and bpsp against the device container, encode / decode ms
+     (medians of 5) and peak memory; (d) the rate forward of the flagship
+     at 512x768 under exact_math against the CPU forward of the same
+     weights (per-(scale, band, colour) sums within 1e-4 relative, maps
+     within rtol 1e-4 and atol RATE_ATOL bits), its ms, and the est/act gap
+     against phase 5's container.
 The line before the last is {"kernels": [...]}: Kernel 2's and Kernel 3's
 rows also carry the batch figures (batch_k, batch_ms, batch_plain_ms,
 batch_bound_ms, batch_launches); the last line is {"ok": true, "device":
@@ -81,13 +97,14 @@ import torch
 from llicti_torch import (Codec, ModelConfig, _kernels, load_npz,
                           synthetic_image)
 from llicti_torch import codec as cmod
+from llicti_torch.codec import exact_math
 from llicti_torch.coder import rans
 from llicti_torch.ops import cdf
 from llicti_torch.ops.color import rgb_int_to_ycocg_r_int
 from llicti_torch.ops.bounds import lower_bound
 from llicti_torch.ops.gmm import SCALE_BOUND_NORMAL, cdf_sampling_points
 from llicti_torch.ops.wavelet import lazy_dwt
-from llicti_torch.weights import init_params
+from llicti_torch.weights import init_params, params_from_flax
 
 # (label, ModelConfig knobs, trained weights?, also 310x598?)
 VARIANTS = [
@@ -201,7 +218,7 @@ def kernel_phase(codec, img):
     y0 = y_list[0]
     h, w = y0.shape[1], y0.shape[2]
     n = h * w
-    with torch.inference_mode():
+    with torch.inference_mode(), exact_math():
         pmap = codec.model.band_params(y0[..., :3].contiguous(), 0, 0)
     pm = pmap[0].reshape(n, -1).contiguous()
     y2 = y0[0].reshape(n, -1).contiguous()
@@ -604,7 +621,7 @@ def model_phase(codec, params, img):
     rng = np.random.default_rng(0)
     y = torch.from_numpy(rng.uniform(-0.4, 0.4, (1, 32, 48, 12))
                          .astype(np.float32))
-    with torch.inference_mode():
+    with torch.inference_mode(), exact_math():
         for b in range(3):
             a = cpu.model.band_params(y[..., :3 * (b + 1)].contiguous(), 0, b)
             g = codec.model.band_params(
@@ -659,6 +676,7 @@ def round_trip(codec, img, label: str):
           f"encode {1e3 * (t1 - t0):.2f} ms, decode {1e3 * (t3 - t2):.2f} "
           f"ms, peak memory {torch.cuda.max_memory_allocated() / 2**20:.1f} "
           f"MiB")
+    return streams, hashlib.sha256(blob).hexdigest()
 
 
 def table_path(codec, img):
@@ -670,7 +688,7 @@ def table_path(codec, img):
     x = torch.from_numpy(img[None].copy()).to(dev)
     y0 = lazy_dwt(codec._to_y(rgb_int_to_ycocg_r_int(x)), cfg.dwtlevels,
                   pad=True)[0][0]
-    with torch.inference_mode():
+    with torch.inference_mode(), exact_math():
         pmap = codec.model.band_params(y0[..., :3].contiguous(), 0, 0)
     tables, syms, sf = [], [], []
     for clr in range(3):
@@ -763,7 +781,7 @@ def batched_kernel_phase(codec, imgs, kres):
     y0 = lazy_dwt(codec._to_y(rgb_int_to_ycocg_r_int(x)), cfg.dwtlevels,
                   pad=True)[0][0]
     n = y0.shape[1] * y0.shape[2]
-    with torch.inference_mode():
+    with torch.inference_mode(), exact_math():
         pmap = codec.model.band_params(y0[..., :3].contiguous(), 0, 0)
     M, s0, m0, w0, upd = cmod.pmap_cdf_spec(cfg, 0, 0)
     sch = cmod.sym_channel(cfg, 0, 0)
@@ -1092,6 +1110,192 @@ def serving_phase(codec, params, kres, counters):
     return dec_row, enc_row, paths
 
 
+# the flagship container's sha256 since PR 2 (its first and last hex
+# digits), and the JAX package's num_bytes of the same image, weights and
+# N = 1024 on the CPU (use_pallas_cdf=False)
+FLAGSHIP_SHA = ("3cab0436", "9336cc")
+JAX_FLAGSHIP_BYTES = 861_767
+RATE_ATOL = 0.01  # bits: the card's self-information maps against the CPU's
+FLAGS = ("cudnn.allow_tf32", "cuda.matmul.allow_tf32", "cudnn.benchmark",
+         "cudnn.deterministic")
+
+
+def read_flags():
+    b = torch.backends
+    return (b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32, b.cudnn.benchmark,
+            b.cudnn.deterministic)
+
+
+def flip_flags():
+    """Set the four flags to the opposite of their values; -> the new
+    values."""
+    b = torch.backends
+    new = tuple(not v for v in read_flags())
+    (b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32, b.cudnn.benchmark,
+     b.cudnn.deterministic) = new
+    return new
+
+
+def median_ms(fn, runs: int = 5) -> float:
+    return sorted(timed(fn)[1] for _ in range(runs))[runs // 2]
+
+
+def c2_check(streams) -> None:
+    """The flagship container's size against the JAX package's."""
+    nb = Codec.num_bytes(streams)
+    tol = max(0.001 * JAX_FLAGSHIP_BYTES, 16)
+    print(f"C2: flagship num_bytes {nb} against the JAX package's "
+          f"{JAX_FLAGSHIP_BYTES} (CPU): {nb - JAX_FLAGSHIP_BYTES:+d} bytes, "
+          f"limit +-{tol:.0f}")
+    check(abs(nb - JAX_FLAGSHIP_BYTES) <= tol, "C2: the flagship container's "
+          "size is not within max(0.1 %, 16 B) of the JAX package's")
+
+
+def c1_check(cfg, params, img, sha, counters) -> None:
+    """Encoder and decoder under the opposite of every flag: after the
+    codec is built, and again between compress and decompress; the
+    container keeps its sha256 and decodes byte-exactly, resident closures
+    too, and every call leaves the flags it found."""
+    saved = read_flags()
+    try:
+        codec = Codec(cfg, params, num_lanes=1024)
+        reset_counts(counters)
+        flipped = flip_flags()
+        streams = codec.compress(img)
+        check(read_flags() == flipped, "compress changed the caller's flags")
+        blob = Codec.serialize(streams)
+        check(hashlib.sha256(blob).hexdigest() == sha, "C1: under flipped "
+              "flags the flagship container's sha256 changed")
+        flipped = flip_flags()
+        out = codec.decompress(Codec.deserialize(blob), xorg=img)
+        check(read_flags() == flipped, "decompress changed the flags")
+        check(np.array_equal(out[0], img) and codec.last_ycocg_err == 0,
+              "C1: the decode under flipped flags is not byte-exact")
+        dec_fn, enc_fn = codec.prepare_decode(streams), codec.prepare_encode(
+            img)
+        flipped = flip_flags()
+        rgb = dec_fn().cpu().numpy()
+        cursors, states, buf, _ = enc_fn()
+        check(read_flags() == flipped, "a closure changed the flags")
+        total = int(cursors[0, -1])
+        check(np.array_equal(rgb[0], img) and rans.pack_stream_packed(
+            buf[0, :total].cpu().numpy(), states[0].cpu().numpy())
+            == streams[1][0], "C1: a resident closure under flipped flags "
+              "does not match")
+        got = read_counts(counters, "C1 round trip")
+        print(f"C1: {FLAGS} flipped after the codec was built, between "
+              f"compress and decompress and before the closures: sha256 "
+              f"{sha[:8]}... kept, decode and closures byte-exact, the "
+              f"caller's flags read back after every call; launches {got}")
+    finally:
+        b = torch.backends
+        (b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32, b.cudnn.benchmark,
+         b.cudnn.deterministic) = saved
+
+
+def host_phase(cfg, params, images, counters) -> None:
+    """backend="host": lossless round trips with the host range coder,
+    bytes and bpsp against the device container, ms (median of 5) and peak
+    memory.  The host backend launches none of the hand kernels."""
+    codec = Codec(cfg, params, num_lanes=1024, backend="host")
+    for label, (img, dev_streams, _, _) in images.items():
+        codec.decompress(codec.compress(img))  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(counters)
+        streams = codec.compress(img)
+        blob = Codec.serialize(streams)
+        out = codec.decompress(Codec.deserialize(blob), xorg=img)
+        got = {name: fn.launches for name, fn in counters.items()}
+        check(out.shape == (1,) + img.shape and np.array_equal(out[0], img)
+              and codec.last_ycocg_err == 0,
+              f"host backend {label}: lossy (ycocg err "
+              f"{codec.last_ycocg_err})")
+        check(all(v == 0 for v in got.values()),
+              f"host backend {label} launched a hand kernel: {got}")
+        enc_ms = median_ms(lambda: codec.compress(img))
+        dec_ms = median_ms(lambda: codec.decompress(streams))
+        nb, dnb = Codec.num_bytes(streams), Codec.num_bytes(dev_streams)
+        print(f"host backend {label}: lossless, last_ycocg_err 0, "
+              f"{len(blob)} bytes serialized, bpsp {nb * 8 / img.size:.4f} "
+              f"against the device container's {dnb * 8 / img.size:.4f} "
+              f"({100 * (nb - dnb) / dnb:+.3f} %), encode {enc_ms:.2f} ms, "
+              f"decode {dec_ms:.2f} ms (medians of 5), peak memory "
+              f"{peak_mib():.1f} MiB, hand-kernel launches {got}")
+
+
+def rate_phase(codec, params, img, act_bits, counters) -> None:
+    """The rate forward of the flagship on the card under exact_math
+    against the CPU forward of the same weights, its time, and the
+    est/act gap against the main path's container."""
+    cfg = codec.cfg
+    x = torch.from_numpy(img[None].astype(np.float32) / 255.0)
+    xd = x.to(codec.device)
+
+    def forward():
+        with torch.inference_mode(), exact_math():
+            return codec.model(xd)
+
+    forward()  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    maps, _ = timed(forward)
+    got = {name: fn.launches for name, fn in counters.items()}
+    check(all(v == 0 for v in got.values()),
+          f"the rate forward launched a hand kernel: {got}")
+    ms = median_ms(forward)
+    peak = peak_mib()
+    t0 = time.perf_counter()
+    cpu_model = params_from_flax(params, cfg)
+    with torch.inference_mode():
+        ref = cpu_model(x)
+    cpu_s = time.perf_counter() - t0
+    with torch.inference_mode():
+        same = all(torch.equal(a.cpu(), b) for a, b in zip(
+            codec.model.transform(xd), cpu_model.transform(x)))
+    check(same, "rate forward: the card's float lifting and wavelet bands "
+          "differ from the CPU's")
+    maps = [m.cpu() for m in maps]
+    check([m.shape for m in maps] == [r.shape for r in ref]
+          and all(bool(torch.isfinite(m).all()) for m in maps),
+          "rate forward: shapes differ or values are not finite")
+    dev = max(float((m - r).abs().max()) for m, r in zip(maps, ref))
+    sums = torch.stack([m.double().sum(dim=(0, 1, 2)) for m in maps])
+    rsums = torch.stack([r.double().sum(dim=(0, 1, 2)) for r in ref])
+    rel = float(((sums - rsums).abs() / rsums.abs()).max())
+    print(f"rate forward 512x768: {[tuple(m.shape) for m in maps]}, card "
+          f"{ms:.2f} ms (median of 5), peak memory {peak:.1f} MiB, CPU "
+          f"{cpu_s:.2f} s; bands equal to the CPU's bit for bit; card "
+          f"against CPU: largest map deviation "
+          f"{dev:.3g} bits, per-slice sums {rel:.3g} relative")
+    check(rel <= 1e-4, "rate forward: per-slice sums differ from the CPU's")
+    for m, r in zip(maps, ref):
+        check(torch.allclose(m, r, rtol=1e-4, atol=RATE_ATOL),
+              f"rate forward: a map differs from the CPU's beyond "
+              f"rtol 1e-4, atol {RATE_ATOL} bits")
+    est = float(sums.sum())
+    act = sum(sum(r) for r in act_bits)
+    print(f"est/act: estimate {est:.0f} bits, the main path's container "
+          f"{act} bits, gap {100 * (act - est) / est:+.2f} % (the JAX "
+          f"package's own on this image: -2.19 %)")
+
+
+def slice_phase(codec, params, counters, images) -> None:
+    """The rate forward, the host backend, scoped exact math (C1) and the
+    size against the JAX package (C2), on the main path's images; ``images``
+    maps a label to (image, its device container, sha256, slice bits)."""
+    img, flagship, sha, act_bits = images["512x768"]
+    c2_check(flagship)
+    t0 = time.perf_counter()
+    c1_check(codec.cfg, params, img, sha, counters)
+    print(f"C1 check: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    host_phase(codec.cfg, params, images, counters)
+    print(f"host backend: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    rate_phase(codec, params, img, act_bits, counters)
+    print(f"rate forward: {time.perf_counter() - t0:.2f} s")
+
+
 def build_phase():
     """Build the kernels; print and check ptxas's report, Kernel 1's
     occupancy and the saturation shortcuts."""
@@ -1151,7 +1355,11 @@ def main() -> None:
     codec.decompress(codec.compress(img))  # warm-up
     for fn in list(counters.values()) + [cdf.gmm_cdf_table_int32]:
         fn.launches = 0
-    round_trip(codec, img, "512x768 flagship")
+    flagship, flagship_sha = round_trip(codec, img, "512x768 flagship")
+    flagship_bits = codec.last_slice_bits
+    check(flagship_sha.startswith(FLAGSHIP_SHA[0])
+          and flagship_sha.endswith(FLAGSHIP_SHA[1]),
+          f"the flagship container's sha256 {flagship_sha} is not PR 2's")
     launches = {name: fn.launches for name, fn in counters.items()}
     print(f"main path launches: {launches}")
     check(all(v > 0 for v in launches.values()),
@@ -1166,7 +1374,7 @@ def main() -> None:
     odd = synthetic_image(310, 598, seed=7)
     codec.decompress(codec.compress(odd))  # warm-up
     before = {name: fn.launches for name, fn in counters.items()}
-    round_trip(codec, odd, "310x598")
+    odd_streams, _ = round_trip(codec, odd, "310x598")
     check(all(fn.launches > before[name] for name, fn in counters.items()),
           "310x598 round trip skipped a kernel")
 
@@ -1181,6 +1389,12 @@ def main() -> None:
     t0 = time.perf_counter()
     dec_row, enc_row, paths = serving_phase(codec, params, kres, counters)
     print(f"serving phase: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    slice_phase(codec, params, counters, {
+        "512x768": (img, flagship, flagship_sha, flagship_bits),
+        "310x598": (odd, odd_streams, None, None)})
+    print(f"rate / host backend / exact-math phase: "
+          f"{time.perf_counter() - t0:.2f} s")
     check("jax" not in sys.modules, "jax was imported")
     check(not any(m.startswith("llicti_tpu") for m in sys.modules),
           "the JAX package was imported")

@@ -1,13 +1,16 @@
-"""LLICTI on PyTorch + CUDA: the lossless codec round trip on an NVIDIA H100.
+"""LLICTI on PyTorch + CUDA: the lossless codec and its rate estimate on an
+NVIDIA H100.
 
 A port of ``llicti_tpu`` (the JAX reference, which stays beside it).  The
-model, the integer colour/wavelet stages and the container format are
-PyTorch and numpy; the three hot loops of the codec are CUDA kernels
-written by hand under ``csrc/`` (the CDF table and the rANS decode and
-encode lane scans), each with a plain PyTorch version that runs on CPU
-tensors.  This package imports no JAX and nothing of ``llicti_tpu``: it
-keeps its own copies of the configuration and the synthetic images.
-``Codec`` runs on the CUDA card unless it is given ``device="cpu"``.
+model and its rate forward, the colour/wavelet stages and the container
+format are PyTorch and numpy; the three hot loops of the device backend
+are CUDA kernels written by hand under ``csrc/`` (the CDF table and the
+rANS decode and encode lane scans), each with a plain PyTorch version that
+runs on CPU tensors; the host backend's range coder is C++
+(``csrc/rangecoder.cpp``, built with g++).  This package imports no JAX
+and nothing of ``llicti_tpu``: it keeps its own copies of the
+configuration and the synthetic images.  ``Codec`` runs on the CUDA card
+unless it is given ``device="cpu"``.
 """
 from .codec import Codec
 from .config import ModelConfig

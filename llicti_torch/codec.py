@@ -1,38 +1,47 @@
 """Lossless codec: compress / decompress, one image or a batch, and the
-serving entry points.
+serving entry points, with the JAX package's two entropy-coding backends.
 
-Port of the device-backend path of ``llicti_tpu/codec.py`` for every
-configuration that codec codes: clr_joint_mode 0, 1 and 2 (with
-clrjnt0seqmd), normal and logistic mixtures, and any model knob
-(activation incl. GDN1, mwsa_joint, combine_layers1toL, useprevlevNN).
-One device pipeline with a leading K axis serves both directions: K = 1
-is the single image, K > 1 the batch container (K images of one shape).
-Per scale, coarse to fine, and per band, one shared function
-(:meth:`Codec._band`) runs the interpolator conv on the bands decoded so
-far and, for each of the three colours, builds the quantised CDF table
-of all K images' pixels (Kernel 1) and either collects the encoder's
-(start, freq) or rANS-decodes the band of all K images in one launch
-(Kernel 2) and writes it back.  The encoder then encodes all 45 slices,
-in reverse decode order, into one stream per image with one chain call
-of the rANS encoder (Kernel 3) for the K images.  clr_joint_mode 1 codes
-a zero channel in front of (Y, Co, Cg); with clrjnt0seqmd the trunk runs
-once per colour on the band's layer-0 map plus the pixel's colours
-decoded so far.
+Port of ``llicti_tpu/codec.py`` for every configuration that codec codes:
+clr_joint_mode 0, 1 and 2 (with clrjnt0seqmd), normal and logistic
+mixtures, and any model knob (activation incl. GDN1, mwsa_joint,
+combine_layers1toL, useprevlevNN).  One device pipeline with a leading K
+axis serves every pass: K = 1 is the single image, K > 1 the batch
+container (K images of one shape).  Per scale, coarse to fine, and per
+band, one shared function (:meth:`Codec._band`) runs the interpolator conv
+on the bands decoded so far and hands each colour's parameter rows to the
+pass's coder, writing back what a decoder returns.
+
+``backend="device"`` (the default): per colour the quantised CDF table of
+all K images' pixels (Kernel 1), then either the encoder's (start, freq)
+or the rANS decode of the band of all K images in one launch (Kernel 2).
+The encoder encodes all 45 slices, in reverse decode order, into one
+stream per image with one chain call of the rANS encoder (Kernel 3) for
+the K images.  ``backend="host"``: the reference-parity range coder
+(``coder/range_coder.py``, C++ on the host under torchac's uint16-CDF
+contract) on float CDF tables built in plain PyTorch on the device
+(:meth:`Codec._cdf_u16`); the encoder ships two uint16 a pixel to the host
+and codes a scale's 9 streams on a thread pool, the decoder ships each
+slice's table and decodes it on the host.  clr_joint_mode 1 codes a zero
+channel in front of (Y, Co, Cg); with clrjnt0seqmd (device backend only)
+the trunk runs once per colour on the band's layer-0 map plus the pixel's
+colours decoded so far.
 
 Bit-exactness: encoder and decoder must compute identical CDF tables.
 Both run the same convs on conditioning tensors of identical shape,
-layout and values, with TF32 and cuDNN autotuning off and deterministic
-algorithms on, and the same CDF kernel; every int -> float conversion is
-``int.float() * INV255`` on both sides.  cuDNN may pick another
-algorithm for another batch size, so an image's tables in a batch of K
-need not equal its tables alone: a batch container decodes only through
-the batch path (:meth:`Codec.decompress_batch`), at its own K, and a
-single container only through the single path.  ``num_lanes``, like K,
+layout and values, and the same CDF code; every int -> float conversion
+is ``int.float() * INV255`` on both sides.  Every pass runs under
+:func:`exact_math` (TF32 and cuDNN autotuning off, deterministic
+algorithms on), which restores the caller's flags when it returns, so the
+codec neither depends on nor changes the process's settings.  cuDNN may
+pick another algorithm for another batch size, so an image's tables in a
+batch of K need not equal its tables alone: a batch container decodes
+only through the batch path (:meth:`Codec.decompress_batch`), at its own
+K, and a single container only through the single path.  ``num_lanes``, like K,
 is matched between encoder and decoder; the container records neither.
 ``two_stage`` runs the same convs and kernels on the same shapes, so its
 streams equal the fused codec's and each decodes the other's.
 
-Containers (byte for byte the JAX package's device-backend formats):
+Containers (byte for byte the JAX package's formats):
   single: streams[0] = [header, minmax int16 x6, pad_int int16,
                         raw x00 RGB [1, lh, lw, 3], b''*5]
             header = S u8 | last_h, last_w u16 | orig_h, orig_w u32 |
@@ -43,6 +52,10 @@ Containers (byte for byte the JAX package's device-backend formats):
                         [K, 2], union minmax int16 x6, pad_int int16,
                         raw x00 RGB [K, lh, lw, 3], b''*5]
           streams[1 + k] = [image k's rANS blob]
+  host:   streams[0] = the single container's without head_words (a
+                       13-byte header)
+          streams[1 + s] = the 9 range-coded streams of scale S-1-s
+                           (coarse to fine), index b*3 + clr
 With ``size_bucket`` the image is replicate-padded to bucket multiples
 before coding; the header's pad flags, ``last_h``/``last_w``, minmax and
 raw band describe the padded image, ``orig`` the size the decoder crops
@@ -50,11 +63,15 @@ to.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .coder import range_coder
 from .coder.rans import (RANS_L, pack_stream_packed, rans_decode,
                          rans_encode_chain, unpack_stream)
 from .config import ModelConfig
@@ -62,7 +79,7 @@ from .models.interpolator import seq_colours
 from .ops.cdf import gmm_cdf_from_pmap
 from .ops.color import (rgb_int_to_ycocg_r_int, rgb_int_to_ycocg_r_int_np,
                         ycocg_r_int_to_rgb_int)
-from .ops.gmm import cdf_sampling_points
+from .ops.gmm import cdf_float_to_uint16, cdf_sampling_points, gmm_cdf_table
 from .ops.wavelet import (band_coded_shape, interleave_scale, lazy_dwt,
                           pad_decoded_band, unpack_pad_flags)
 from .weights import params_from_flax
@@ -70,6 +87,47 @@ from .weights import params_from_flax
 RANGE_BUCKET = 32
 INV255 = np.float32(1.0 / 255.0)
 _SHIFT = (127, 0, 0)  # Y is coded around 127/255
+
+
+@contextlib.contextmanager
+def exact_math():
+    """For the duration of a pass, the arithmetic under which encoder and
+    decoder compute identical CDF tables: cuDNN on, no autotuning,
+    deterministic algorithms, TF32 off in cuDNN and in matmuls.  cuDNN
+    picks a conv's algorithm when the conv is enqueued, so the context
+    must cover the enqueue, not a later synchronisation.  The caller's
+    values come back on exit, also after an exception."""
+    matmul = torch.backends.cuda.matmul
+    tf32 = matmul.allow_tf32
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True, allow_tf32=False):
+        matmul.allow_tf32 = False
+        try:
+            yield
+        finally:
+            matmul.allow_tf32 = tf32
+
+
+@functools.lru_cache(maxsize=None)
+def _settle_cpu_math() -> None:
+    """Run PyTorch's CPU exp and erfc once on one thread.  Their first call
+    in a process, if it runs on several threads at once, can take another
+    code path in one thread's share (a block of values ~1e-4 off, in about
+    one process in ten on an 8-core CPU), so a CPU encoder's first CDF
+    tables would differ from its decoder's; after one single-threaded call
+    every call agrees."""
+    x = torch.zeros(8)
+    torch.exp(x)
+    torch.special.erfc(x)
+
+
+def _pass(method):
+    """Run a codec method under inference mode and :func:`exact_math`."""
+    @functools.wraps(method)
+    def run(*args, **kwargs):
+        with torch.inference_mode(), exact_math():
+            return method(*args, **kwargs)
+    return run
 
 
 def clr_offset(cfg: ModelConfig) -> int:
@@ -215,12 +273,14 @@ def _group(header: bytes, minmax, pad_int, raw: bytes) -> List[bytes]:
 
 
 def header_group(S, last_h, last_w, orig_h, orig_w, minmax, pad_int,
-                 raw: bytes, head_words: int) -> List[bytes]:
-    """streams[0] of a single-image container."""
+                 raw: bytes, head_words: Optional[int]) -> List[bytes]:
+    """streams[0] of a single-image container; a host-backend container
+    records no ``head_words`` (None)."""
+    head = (b"" if head_words is None
+            else np.array([head_words], np.uint32).tobytes())
     return _group(np.array([S], np.uint8).tobytes()
                   + np.array([last_h, last_w], np.uint16).tobytes()
-                  + np.array([orig_h, orig_w], np.uint32).tobytes()
-                  + np.array([head_words], np.uint32).tobytes(),
+                  + np.array([orig_h, orig_w], np.uint32).tobytes() + head,
                   minmax, pad_int, raw)
 
 
@@ -289,12 +349,24 @@ def _checked_header(levels, last_h, last_w, origs, group, head_words):
     return Header(minmax, pad_flags, raw, list(origs), head_words)
 
 
+def host_coded(streams: List[List[bytes]]) -> bool:
+    """Whether a single-image container holds the host backend's groups
+    of 9 range-coded streams (else one rANS stream)."""
+    return len(streams) > 1 and len(streams[1]) == 9
+
+
 def parse_container(streams: List[List[bytes]],
                     levels: Sequence[int]) -> Header:
-    """The Header of a single-image container; ValueError on one that does
-    not describe an image of ``levels`` (see :func:`_checked_header`)."""
-    if len(streams) != 2 or len(streams[0]) < 4 or len(streams[1]) != 1:
-        raise ValueError("not a single-stream (device backend) container")
+    """The Header of a single-image container of either backend: one rANS
+    stream, or S groups of 9 range-coded streams; ValueError on one that
+    does not describe an image of ``levels`` (see
+    :func:`_checked_header`)."""
+    S = len(levels)
+    device = len(streams) == 2 and len(streams[1]) == 1
+    host = len(streams) == 1 + S and all(len(g) == 9 for g in streams[1:])
+    if not (device or host) or len(streams[0]) < 4:
+        raise ValueError("not a single-image container (one rANS stream, "
+                         f"or {S} groups of 9 range-coded streams)")
     hdr = streams[0][0]
     if len(hdr) < 13 or hdr[0] != len(levels):
         raise ValueError(f"header does not describe {len(levels)} scales")
@@ -378,13 +450,6 @@ class _Staged(NamedTuple):
     ranges: List[Tuple[int, int]]
 
 
-class _DecodeCarry(NamedTuple):
-    """Device state the rANS decode threads through the slices."""
-    words: torch.Tensor    # int32 [K, W]
-    states: torch.Tensor   # int64 [K, N]
-    offset: torch.Tensor   # int32 [K]
-
-
 class _DecodeInputs(NamedTuple):
     """A container's buffers on the device, ready to decode."""
     hdr: Header
@@ -413,15 +478,24 @@ class Codec:
     (``compiled_shapes``, the JAX package's name); the decoder crops back.
     ``two_stage`` splits each decode at the finest scale: scales S-1..1 run
     on the stream's first ``head_words`` words while the rest copies to
-    the card on a second CUDA stream.  Codes what the JAX ``Codec`` codes
-    on its device backend and raises ``NotImplementedError`` on the rest:
+    the card on a second CUDA stream.  ``backend="host"`` codes single
+    images with the host range coder, ``num_threads`` streams at once;
+    as in the JAX package, ``compress_many`` and ``prepare_encode`` code
+    with the device coder whatever the backend, every decoder takes
+    either backend's single containers (a host one synchronously; not
+    ``prepare_decode``), and ``compress_batch``, ``two_stage`` and
+    clrjnt0seqmd need the device backend (ValueError).  Codes what the
+    JAX ``Codec`` codes and raises ``NotImplementedError`` on the rest:
     subtract_mean, ycocg=False, clrchs < 3, a single mixture, and
     clrjnt0seqmd with GDN1 (which couples the colours' channel groups).
+    Every pass runs under :func:`exact_math` and leaves the process's
+    cuDNN / TF32 flags as it found them.
 
     Accounting: after an encode, ``last_slice_bits_batch`` and
     ``last_ideal_bits_batch`` hold one [scale][b*3+clr] table per image
     (stream bits and the ideal bits of the coder's own tables), and
-    ``last_slice_bits`` / ``last_ideal_bits`` their elementwise sums.
+    ``last_slice_bits`` / ``last_ideal_bits`` their elementwise sums; the
+    host backend keeps stream bits only (ideal bits None).
     """
 
     serialize = staticmethod(serialize)
@@ -430,7 +504,8 @@ class Codec:
 
     def __init__(self, cfg: ModelConfig, params, device="cuda",
                  num_lanes: int = 512, size_bucket: int = 0,
-                 two_stage: bool = False):
+                 two_stage: bool = False, backend: str = "device",
+                 num_threads: int = 8):
         refused = [why for bad, why in (
             (cfg.clrchs != 3, "clrchs < 3"),
             (cfg.clr_joint_mode not in (0, 1, 2),
@@ -444,6 +519,14 @@ class Codec:
             raise NotImplementedError(
                 f"the codec does not code {', '.join(refused)} (neither "
                 "does the JAX package's)")
+        if backend not in ("device", "host"):
+            raise ValueError(f"backend={backend!r}: 'device' or 'host'")
+        if backend == "host" and seq_colours(cfg):
+            raise ValueError("clrjnt0seqmd codes through the device backend")
+        if backend == "host" and two_stage:
+            raise ValueError("two_stage splits the device backend's decode")
+        if num_threads < 1:
+            raise ValueError(f"num_threads={num_threads}: must be >= 1")
         if not 1 <= num_lanes <= 1024:
             raise ValueError(f"num_lanes={num_lanes}: must be in 1..1024")
         stride = 2 ** (max(cfg.dwtlevels) + 1)
@@ -455,16 +538,14 @@ class Codec:
                              "scale: it needs two scales or more")
         self.cfg = cfg
         self.device = torch.device(device)
-        if self.device.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "Codec runs on the CUDA card by default and none is "
-                    "available; pass device='cpu' for the plain versions")
-            # encoder and decoder must run bit-identical convs
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.benchmark = False
-            torch.backends.cudnn.deterministic = True
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "Codec runs on the CUDA card by default and none is "
+                "available; pass device='cpu' for the plain versions")
+        if self.device.type == "cpu":
+            _settle_cpu_math()
+        self.backend = backend
+        self.num_threads = num_threads
         self.N = num_lanes
         self.size_bucket = size_bucket
         self.two_stage = two_stage
@@ -519,12 +600,15 @@ class Codec:
         return (ycocg_int - self._shift).float() * INV255
 
     def _band(self, y_lev: torch.Tensor, scl: int, b: int, padH: bool,
-              padW: bool, ranges, pts3,
-              dec: Optional[_DecodeCarry] = None):
-        """One band of K images, shared by both directions: the conv, then
-        per colour the CDF table of all K images' pixels and either the
-        encoder's (start, freq) ``[K, n]`` (returned) or the rANS decode of
-        the K images (one launch) written back into ``y_lev`` in place."""
+              padW: bool, code) -> None:
+        """One band of K images, shared by every pass: the conv on the
+        bands before it, then for each colour ``code(b, clr, pm, y2)`` on
+        the band's coded pixels, ``pm`` ``[K*n, CO]`` the colour's
+        parameter rows and ``y2`` ``[K*n, YC]`` the pixels' channels of
+        ``y_lev``.  A decoder's code returns the colour's values int32
+        ``[K*n]`` (symbol + range minimum), written back into ``y_lev`` in
+        place before the next colour's rows are cut; an encoder's returns
+        None."""
         cfg = self.cfg
         c = cfg.cond_channels
         K = y_lev.shape[0]
@@ -542,7 +626,6 @@ class Codec:
         else:
             pm = coded_rows(self.model.band_params(y_cond, scl, b))
         sch0 = sym_channel(cfg, b, 0)
-        sf = []
         for clr in range(3):
             if seq:
                 # this colour's params from the pixel's colours decoded so
@@ -551,21 +634,28 @@ class Codec:
                     base, y_lev[..., sch0:sch0 + 2], scl, b, clr))
             # rebuilt per colour: decode writes each colour back before the
             # next one's cross-colour mean update reads it
-            y2 = coded_rows(y_lev)
-            minv = ranges[clr][0]
-            M, std0, mean0, w0, upd = pmap_cdf_spec(cfg, b, clr)
-            sch = sym_channel(cfg, b, clr)
-            cum, start, freq = gmm_cdf_from_pmap(
-                pts3[clr], pm, y2, M, std0, mean0, w0, upd, self.logistic,
-                sch, minv)
-            if dec is None:
-                sf.append((start.view(K, n), freq.view(K, n)))
-                continue
-            syms = rans_decode(cum.view(K, n, -1), dec.words, dec.states,
-                               dec.offset)
-            vals = (syms.view(K, ch, cw, 1) + minv).float() * INV255
-            y_lev[..., sch] = pad_decoded_band(vals, b, padH, padW)[..., 0]
-        return sf
+            vals = code(b, clr, pm, coded_rows(y_lev))
+            if vals is not None:
+                v = vals.view(K, ch, cw, 1).float() * INV255
+                y_lev[..., sym_channel(cfg, b, clr)] = pad_decoded_band(
+                    v, b, padH, padW)[..., 0]
+
+    def _kernel1(self, b, clr, pm, y2, ranges, pts3):
+        """Kernel 1 on one colour's rows: (int32 CDF table [K*n, P],
+        start, freq [K*n] at the pixels' symbols)."""
+        M, std0, mean0, w0, upd = pmap_cdf_spec(self.cfg, b, clr)
+        return gmm_cdf_from_pmap(
+            pts3[clr], pm, y2, M, std0, mean0, w0, upd, self.logistic,
+            sym_channel(self.cfg, b, clr), ranges[clr][0])
+
+    def _front(self, rgb_dev: torch.Tensor) -> List[torch.Tensor]:
+        """uint8 RGB [K, H, W, 3] on the device -> the encoder's per-scale
+        band tensors (integer YCoCg-R, shifted, /255; padded lazy
+        wavelet)."""
+        x = self._to_y(rgb_int_to_ycocg_r_int(rgb_dev))
+        if clr_offset(self.cfg):
+            x = torch.cat((torch.zeros_like(x[..., :1]), x), dim=-1)
+        return lazy_dwt(x, self.cfg.dwtlevels, pad=True)[0]
 
     # ---- encode ----------------------------------------------------------
     def _prepare(self, rgb: np.ndarray) -> Tuple[np.ndarray, int, int]:
@@ -617,19 +707,19 @@ class Codec:
         """Queue the convs and CDF tables of an encode of ``rgb_dev`` (uint8
         [K, H, W, 3] on the card): the (start, freq) int32 ``[K, n]`` pair
         of every slice, in decode order."""
-        cfg = self.cfg
-        S = cfg.num_scales
         pts3 = self._pts3(st.ranges)
-        x = self._to_y(rgb_int_to_ycocg_r_int(rgb_dev))
-        if clr_offset(cfg):
-            x = torch.cat((torch.zeros_like(x[..., :1]), x), dim=-1)
-        y_list, _, _ = lazy_dwt(x, cfg.dwtlevels, pad=True)
+        y_list = self._front(rgb_dev)
+        K = rgb_dev.shape[0]
         sf = []
-        for scl in range(S - 1, -1, -1):
+
+        def code(b, clr, pm, y2):
+            _, start, freq = self._kernel1(b, clr, pm, y2, st.ranges, pts3)
+            sf.append((start.view(K, -1), freq.view(K, -1)))
+
+        for scl in range(self.cfg.num_scales - 1, -1, -1):
             padH, padW = st.pad_flags[scl]
             for b in range(3):
-                sf += self._band(y_list[scl], scl, b, padH, padW, st.ranges,
-                                 pts3)
+                self._band(y_list[scl], scl, b, padH, padW, code)
         return sf
 
     def _encode_queue(self, rgb_dev: torch.Tensor, st: _Staged):
@@ -706,13 +796,16 @@ class Codec:
         self.last_ideal_bits = [[sum(t[s][i] for t in ideal)
                                  for i in range(9)] for s in range(S)]
 
-    @torch.inference_mode()
+    @_pass
     def compress(self, rgb: np.ndarray) -> List[List[bytes]]:
-        """Encode one image: rgb ``[H, W, 3]`` or ``[1, H, W, 3]`` uint8.
-        Fills the accounting tables (``*_batch`` with one table)."""
+        """Encode one image: rgb ``[H, W, 3]`` or ``[1, H, W, 3]`` uint8,
+        with the codec's backend.  Fills the accounting tables
+        (``*_batch`` with one table)."""
+        if self.backend == "host":
+            return self._compress_host(rgb)
         return self.compress_many([rgb])[0]
 
-    @torch.inference_mode()
+    @_pass
     def compress_many(self, imgs: Sequence[np.ndarray]
                       ) -> List[List[List[bytes]]]:
         """Pipelined encode of several images, each into its own
@@ -720,7 +813,9 @@ class Codec:
         the host work of all images first, then every upload (pinned,
         asynchronous) and every image's device work, then one
         synchronisation for all cursors, states and ideal bits and one for
-        all payloads.  The accounting keeps one table per image."""
+        all payloads.  The accounting keeps one table per image.  Codes
+        with the device backend, whatever the codec's, as the JAX
+        package's does."""
         groups = [self._stage([im]) for im in imgs]
         per = [g[0] for g in self._encode(groups)]
         self._account(per)
@@ -731,12 +826,15 @@ class Codec:
                  [blob]]
                 for st, (blob, act, _) in zip(groups, per)]
 
-    @torch.inference_mode()
+    @_pass
     def compress_batch(self, imgs: Sequence[np.ndarray]) -> List[List[bytes]]:
         """Encode K <= 254 images of one shape (after ``size_bucket``
         padding) into one batch container: one K-batched pass, each image
         with its own lanes and stream, CDF ranges the union over the batch.
-        Decodes only through :meth:`decompress_batch`."""
+        Decodes only through :meth:`decompress_batch`.  Device backend
+        only."""
+        if self.backend != "device":
+            raise ValueError("a batch container needs the device backend")
         if not 1 <= len(imgs) <= 254:
             raise ValueError(f"a batch holds 1..254 images, got {len(imgs)}")
         st = self._stage(imgs)
@@ -747,7 +845,7 @@ class Codec:
                                     st.pad_int, st.raw.tobytes())]
                 + [[blob] for blob, _, _ in per])
 
-    @torch.inference_mode()
+    @_pass
     def encode_inputs(self, imgs):
         """The encoder's rANS inputs before any is encoded, of one image
         ``[H, W, 3]`` or of a list of images of one shape: (the (start,
@@ -762,14 +860,15 @@ class Codec:
         45] in encode order, states int64 [1, N], buf int32 [1, cap], ideal
         bits float32 [1, 45]).  Everything shape-derived is built here, so
         the call copies nothing between host and card and never
-        synchronises."""
+        synchronises.  Device backend, whatever the codec's (as the JAX
+        package's)."""
         st = self._stage([rgb])
         rgb_dev = self._upload(st.rgb)
         self._pts3(st.ranges)
         self._settle()
 
         def encode():
-            with torch.inference_mode():
+            with torch.inference_mode(), exact_math():
                 return self._encode_queue(rgb_dev, st)
 
         return encode
@@ -778,6 +877,79 @@ class Codec:
         """Wait for the staging copies of a resident closure."""
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
+
+    # ---- host backend ----------------------------------------------------
+    def _cdf_u16(self, pm, y2, pts, b: int, clr: int) -> torch.Tensor:
+        """One colour's uint16 CDF table ``[n, P]`` of the host range
+        coder: its mixture parameters (cross-colour mean updates from
+        ``y2``), the float mixture CDF at ``pts`` and its quantisation;
+        shared by both directions on the same shapes."""
+        stdevs, means, weights = gmm_slice_params(self.cfg, pm, y2, b, clr)
+        return cdf_float_to_uint16(gmm_cdf_table(
+            pts, stdevs, means, weights, logistic=self.logistic))
+
+    @staticmethod
+    def _gather_lohi(cdfu: torch.Tensor, y: torch.Tensor, minv: int):
+        """The encoder's two uint16 a pixel: (cdf[s], cdf[s + 1]) at each
+        pixel's symbol s of values ``y`` ``[n]``."""
+        sym = (torch.round(y * 255.0).to(torch.int32) - minv).long()[:, None]
+        cc = cdfu.to(torch.int32)  # torch gathers no uint16
+        return (cc.gather(1, sym)[:, 0].to(torch.uint16),
+                cc.gather(1, sym + 1)[:, 0].to(torch.uint16))
+
+    def _compress_host(self, rgb: np.ndarray) -> List[List[bytes]]:
+        """Host-backend encode of one image: per scale, coarse to fine,
+        the 9 slices' (lo, hi) in one fetch, then their 9 streams coded on
+        the thread pool while the device computes the next scale."""
+        cfg = self.cfg
+        S = cfg.num_scales
+        st = self._stage([rgb])
+        pts3 = self._pts3(st.ranges)
+        y_list = self._front(self._upload(st.rgb))
+        jobs = []
+        with ThreadPoolExecutor(self.num_threads) as pool:
+            for scl in range(S - 1, -1, -1):
+                lohi = []
+
+                def code(b, clr, pm, y2):
+                    minv = st.ranges[clr][0]
+                    cdfu = self._cdf_u16(pm, y2, pts3[clr], b, clr)
+                    lohi.extend(self._gather_lohi(
+                        cdfu, y2[:, sym_channel(cfg, b, clr)], minv))
+
+                padH, padW = st.pad_flags[scl]
+                for b in range(3):
+                    self._band(y_list[scl], scl, b, padH, padW, code)
+                got = self._fetch(lohi)
+                jobs.append([pool.submit(range_coder.encode_lohi, lo, hi)
+                             for lo, hi in zip(got[0::2], got[1::2])])
+            groups = [[job.result() for job in scale] for scale in jobs]
+        self.last_slice_bits = [[8 * len(s) for s in g] for g in groups]
+        self.last_slice_bits_batch = [self.last_slice_bits]
+        self.last_ideal_bits = self.last_ideal_bits_batch = None
+        return [header_group(S, st.last_h, st.last_w, *st.origs[0],
+                             st.minmax, st.pad_int, st.raw.tobytes(),
+                             None)] + groups
+
+    def _decompress_host(self, hdr: Header, streams: List[List[bytes]]):
+        """Host-backend decode: per slice, the table to the host, the
+        range decode there and the symbols back.  -> (YCoCg int32, RGB
+        uint8) [1, H, W, 3] at the padded size, on the device."""
+        S = self.cfg.num_scales
+        ranges = [clr_range(clr, hdr.minmax) for clr in range(3)]
+        pts3 = self._pts3(ranges)
+
+        def scale_code(scl):
+            group = streams[S - scl]
+
+            def code(b, clr, pm, y2):
+                cdf = self._fetch([self._cdf_u16(pm, y2, pts3[clr], b,
+                                                 clr)])[0]
+                syms = range_coder.decode_cdf(cdf, group[b * 3 + clr])
+                return self._upload(syms.astype(np.int32)) + ranges[clr][0]
+            return code
+
+        return self._decode_scales(hdr, self._upload(hdr.raw), scale_code)
 
     # ---- decode ----------------------------------------------------------
     def _decode_stage(self, blobs: Sequence[bytes]):
@@ -825,23 +997,21 @@ class Codec:
             dev = self._upload(words)
         return _DecodeInputs(hdr, raw, dev, st, dev[:, :hw], ready)
 
-    def _decode_queue(self, d: _DecodeInputs):
-        """Queue a whole decode of K images: -> (YCoCg int32, RGB uint8),
-        both [K, H, W, 3] at the padded size, on the device; nothing
-        synchronises."""
+    def _decode_scales(self, hdr: Header, raw: torch.Tensor, scale_code):
+        """The scale loop of every decoder: per scale, coarse to fine, the
+        band tensor seeded from the header's raw band (coarsest) or the
+        scale decoded before it, then its three bands through
+        :meth:`_band` with ``scale_code(scl)``'s per-colour code.  ->
+        (YCoCg int32, RGB uint8), both [K, H, W, 3] at the padded size, on
+        the device."""
         cfg = self.cfg
         c = cfg.cond_channels
         S = cfg.num_scales
-        hdr = d.hdr
-        ranges = [clr_range(clr, hdr.minmax) for clr in range(3)]
-        pts3 = self._pts3(ranges)
-        offset = torch.zeros((d.words.shape[0],), dtype=torch.int32,
-                             device=self.device)
         off = clr_offset(cfg)
         y_lev = None
         for scl in range(S - 1, -1, -1):
             if scl == S - 1:
-                x00 = self._to_y(rgb_int_to_ycocg_r_int(d.raw))
+                x00 = self._to_y(rgb_int_to_ycocg_r_int(raw))
                 lo, hi = off, off + 3
             else:
                 x00 = interleave_scale(y_lev, c,
@@ -851,16 +1021,10 @@ class Codec:
             y_lev = torch.zeros(x00.shape[:3] + (4 * c,),
                                 dtype=torch.float32, device=self.device)
             y_lev[..., lo:hi] = x00
-            words = d.words
-            if d.head is not None and scl > 0:
-                words = d.head
-            elif d.tail_ready is not None:
-                torch.cuda.current_stream(self.device).wait_event(
-                    d.tail_ready)
-            carry = _DecodeCarry(words, d.states, offset)
+            code = scale_code(scl)
             padH, padW = hdr.pad_flags[scl]
             for b in range(3):
-                self._band(y_lev, scl, b, padH, padW, ranges, pts3, carry)
+                self._band(y_lev, scl, b, padH, padW, code)
 
         crop_h, crop_w = int(hdr.pad_flags[0][0]), int(hdr.pad_flags[0][1])
         y_c = interleave_scale(y_lev, c, crop_h, crop_w)
@@ -868,26 +1032,55 @@ class Codec:
                  + self._shift)
         return ycocg, ycocg_r_int_to_rgb_int(ycocg).to(torch.uint8)
 
+    def _decode_queue(self, d: _DecodeInputs):
+        """Queue a whole device-backend decode of K images: -> (YCoCg int32,
+        RGB uint8), both [K, H, W, 3] at the padded size, on the device;
+        nothing synchronises."""
+        ranges = [clr_range(clr, d.hdr.minmax) for clr in range(3)]
+        pts3 = self._pts3(ranges)
+        K = d.words.shape[0]
+        offset = torch.zeros((K,), dtype=torch.int32, device=self.device)
+
+        def scale_code(scl):
+            words = d.words
+            if d.head is not None and scl > 0:
+                words = d.head
+            elif d.tail_ready is not None:
+                torch.cuda.current_stream(self.device).wait_event(
+                    d.tail_ready)
+
+            def code(b, clr, pm, y2):
+                cum, _, _ = self._kernel1(b, clr, pm, y2, ranges, pts3)
+                syms = rans_decode(cum.view(K, -1, cum.shape[-1]), words,
+                                   d.states, offset)
+                return syms.view(-1) + ranges[clr][0]
+            return code
+
+        return self._decode_scales(d.hdr, d.raw, scale_code)
+
     def _dispatch(self, streams: List[List[bytes]]):
         hdr = parse_container(streams, self.cfg.dwtlevels)
+        if host_coded(streams):
+            return self._decompress_host(hdr, streams) + (hdr,)
         words, states = self._decode_stage([streams[1][0]])
         ycocg, rgb = self._decode_queue(
             self._decode_upload(hdr, words, states, split=True))
         return ycocg, rgb, hdr
 
-    @torch.inference_mode()
+    @_pass
     def decompress_dispatch(self, streams: List[List[bytes]]):
         """Queue one image's decode; -> (RGB uint8 [1, H, W, 3] on the
         device at the padded size, orig_h, orig_w).  Nothing synchronises,
-        so several images' decodes can be queued and fetched together."""
+        so several images' decodes can be queued and fetched together; a
+        host-backend container decodes synchronously."""
         _, rgb, hdr = self._dispatch(streams)
         return (rgb,) + hdr.origs[0]
 
-    @torch.inference_mode()
+    @_pass
     def decompress(self, streams: List[List[bytes]],
                    xorg: Optional[np.ndarray] = None) -> np.ndarray:
-        """Decode a single-image container back to ``[1, H, W, 3]`` uint8
-        RGB.
+        """Decode a single-image container of either backend back to
+        ``[1, H, W, 3]`` uint8 RGB.
 
         ``xorg``: the original image, optional; when given, the decoded
         YCoCg integers (before the inverse colour transform) are checked
@@ -912,14 +1105,17 @@ class Codec:
         org = rgb_int_to_ycocg_r_int(self._upload(xpad))
         return int((ycocg - org).abs().max())
 
-    @torch.inference_mode()
+    @_pass
     def decompress_many(self, streams_list: Sequence[List[List[bytes]]]
                         ) -> List[np.ndarray]:
         """Pipelined decode of several single-image containers: every
         header parse and stream unpack first, then every upload (pinned,
         asynchronous), then every image's device work, then one
-        synchronisation for all images."""
+        synchronisation for all images.  With a host-backend container
+        among them, every image decodes synchronously, one by one."""
         hdrs = [parse_container(s, self.cfg.dwtlevels) for s in streams_list]
+        if any(host_coded(s) for s in streams_list):
+            return [self.decompress(s) for s in streams_list]
         staged = [self._decode_stage([s[1][0]]) for s in streams_list]
         inputs = [self._decode_upload(h, w, st, split=True)
                   for h, (w, st) in zip(hdrs, staged)]
@@ -936,7 +1132,7 @@ class Codec:
         self._settle()
 
         def decode():
-            with torch.inference_mode():
+            with torch.inference_mode(), exact_math():
                 # the decode updates the lane states in place
                 return self._decode_queue(
                     d._replace(states=d.states.clone()))[1]
@@ -948,9 +1144,15 @@ class Codec:
         whose call queues its decode and returns the device RGB [1, H, W,
         3] (padded size).  Everything shape-derived (stream buffers,
         sampling grids, the two-stage head) is built here, so the call
-        copies nothing between host and card and never synchronises."""
-        return self._resident(parse_container(streams, self.cfg.dwtlevels),
-                              [streams[1][0]])
+        copies nothing between host and card and never synchronises.  A
+        host-backend container raises ValueError (it decodes through
+        :meth:`decompress`)."""
+        hdr = parse_container(streams, self.cfg.dwtlevels)
+        if host_coded(streams):
+            raise ValueError("prepare_decode stages a device-backend "
+                             "container; a host-backend one decodes "
+                             "through decompress")
+        return self._resident(hdr, [streams[1][0]])
 
     def prepare_decode_batch(self, streams: List[List[bytes]]):
         """:meth:`prepare_decode` for a batch container: the closure
@@ -959,7 +1161,7 @@ class Codec:
             parse_batch_container(streams, self.cfg.dwtlevels),
             [g[0] for g in streams[1:]])
 
-    @torch.inference_mode()
+    @_pass
     def decompress_batch(self, streams: List[List[bytes]]
                          ) -> List[np.ndarray]:
         """Decode a batch container -> K ``[H, W, 3]`` uint8 images, each

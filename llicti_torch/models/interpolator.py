@@ -1,16 +1,20 @@
 """Interpolator network: the conditional-GMM parameter CNN of one
-(scale, band).
+(scale, band), and its self-information head.
 
-Port of ``llicti_tpu/models/interpolator.py:92-304`` (codec path).  Layer
-0 is band-geometry specific: small Ev/Od kernels with asymmetric
-replicate padding that align receptive fields with the polyphase sample
-positions; the trunk is grouped 1x1 convs.  ``band=-1``
-(combine_layers1toL) holds every band's layer-0 convs and picks them by
-the conditioning channel count.  With clrjnt0seqmd, the current pixel's
-earlier colours feed the later colours' channel groups through
-``seq_toCo`` / ``seq_toCg`` (:meth:`Interpolator.params_from_base`).
-Public tensors are NHWC like the JAX package's; inside, the convs run
-NCHW.  subtract_mean (a training variant) is not ported.
+Port of ``llicti_tpu/models/interpolator.py``.  Layer 0 is band-geometry
+specific: small Ev/Od kernels with asymmetric replicate padding that
+align receptive fields with the polyphase sample positions; the trunk is
+grouped 1x1 convs.  ``band=-1`` (combine_layers1toL) holds every band's
+layer-0 convs and picks them by the conditioning channel count.  With
+clrjnt0seqmd, the current pixel's earlier colours feed the later colours'
+channel groups through ``seq_toCo`` / ``seq_toCg``
+(:meth:`Interpolator.params_from_base`).  The codec path calls
+:meth:`Interpolator.get_params`; the rate forward
+(:meth:`Interpolator.forward`) turns the parameter map into the
+self-information of the band to predict, for every configuration the
+JAX package trains (clrjnt 0 / 1 / 2, clrchs < 3, subtract_mean).  Public
+tensors are NHWC like the JAX package's; inside, the convs run NCHW.
+Forward only: gradients through the bounds come with training.
 """
 from __future__ import annotations
 
@@ -19,7 +23,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import ModelConfig
+from ..ops.color import ieee_div
 from ..ops.gdn import GDN1
+from ..ops.gmm import gmm_self_information
 
 
 def interpolator_dims(cfg: ModelConfig, scale: int):
@@ -96,12 +102,17 @@ class Interpolator(nn.Module):
             raise ValueError(f"band={band}")
         grps, Ch, Co, c, grp0 = interpolator_dims(cfg, scale)
         self.c = c
+        self.clrchs, self.clr_joint_mode = cfg.clrchs, cfg.clr_joint_mode
+        self.num_mixtures = cfg.num_mixtures
+        self.logistic = cfg.distribution == "logistic"
+        self.subtract_mean, self.rndfactor = cfg.subtract_mean, cfg.rndfactor
+        self.seq = seq_colours(cfg)
         specs = _layer0_specs(cfg.evens[scale], cfg.odds[scale])
         self._specs = {b: s for b, s in specs.items() if band in (b, -1)}
         for spec in self._specs.values():
             for _, name, kernel, _ in spec:
                 self.add_module(name, nn.Conv2d(c, Ch, kernel, groups=grp0))
-        if seq_colours(cfg):
+        if self.seq:
             self.seq_toCo = nn.Conv2d(1, Ch // 3, 1)
             self.seq_toCg = nn.Conv2d(2, Ch // 3, 1)
         self.act0 = _activation(cfg.activfun, Ch)
@@ -112,27 +123,53 @@ class Interpolator(nn.Module):
         trunk.append(nn.Conv2d(Ch, Co, 1, groups=grps))
         self.trunk = nn.Sequential(*trunk)
 
-    def _base(self, y_cond: torch.Tensor) -> torch.Tensor:
-        """Pre-activation layer-0 sum, NCHW."""
-        x = y_cond.permute(0, 3, 1, 2)
-        c = self.c
-        band = y_cond.shape[-1] // c - 1
+    def _units(self, y_cond: torch.Tensor):
+        """The conditioning bands as NCHW and this band's layer-0 specs."""
+        band = y_cond.shape[-1] // self.c - 1
         if band not in self._specs:
             raise ValueError(f"{y_cond.shape[-1]} conditioning channels fit "
                              f"no band of this interpolator")
+        return y_cond.permute(0, 3, 1, 2), self._specs[band]
+
+    def _base(self, y_cond: torch.Tensor) -> torch.Tensor:
+        """Pre-activation layer-0 sum, NCHW."""
+        x, specs = self._units(y_cond)
+        c = self.c
         out = None
-        for unit, name, _, pad in self._specs[band]:
+        for unit, name, _, pad in specs:
             xb = x[:, unit * c:(unit + 1) * c].contiguous()
             o = getattr(self, name)(F.pad(xb, pad, mode="replicate"))
             out = o if out is None else out + o
         return out
+
+    def _quant(self, x: torch.Tensor) -> torch.Tensor:
+        return ieee_div(torch.round(x * self.rndfactor), self.rndfactor)
+
+    def _base_submean(self, y_cond: torch.Tensor):
+        """subtract_mean layer 0: each conditioning band minus its quantised
+        local box mean (over the conv's kernel window of the
+        replicate-padded band) before its conv.  -> (pre-activation sum
+        NCHW, quantised mean of the band means NHWC), the mean to subtract
+        from the predicted band."""
+        x, specs = self._units(y_cond)
+        c = self.c
+        out = mean_sum = None
+        for unit, name, (kh, kw), pad in specs:
+            xb = x[:, unit * c:(unit + 1) * c]
+            mn = _box_mean(F.pad(xb, pad, mode="replicate"), kh, kw)
+            o = getattr(self, name)(
+                F.pad(xb - self._quant(mn), pad, mode="replicate"))
+            out = o if out is None else out + o
+            mean_sum = mn if mean_sum is None else mean_sum + mn
+        mean = self._quant(ieee_div(mean_sum, len(specs)))
+        return out, mean.permute(0, 2, 3, 1)
 
     def _head(self, base: torch.Tensor) -> torch.Tensor:
         """Activation + trunk of an NCHW base -> NHWC contiguous pmap."""
         h = self.trunk(self.act0(base))
         return h.permute(0, 2, 3, 1).contiguous()
 
-    def forward(self, y_cond: torch.Tensor) -> torch.Tensor:
+    def get_params(self, y_cond: torch.Tensor) -> torch.Tensor:
         """Conditioning bands ``[B, H, W, c*(band+1)]`` -> GMM parameter map
         ``[B, H, W, Co]`` (contiguous)."""
         return self._head(self._base(y_cond))
@@ -158,3 +195,86 @@ class Interpolator(nn.Module):
         if clr >= 2:
             parts[2] = parts[2] + self.seq_toCg(ys[:, 0:2].contiguous())
         return self._head(torch.cat(parts, dim=1) if clr >= 1 else b)
+
+    def forward(self, y_cond: torch.Tensor,
+                y_topred: torch.Tensor) -> torch.Tensor:
+        """Rate forward: conditioning bands and the band to predict
+        ``[B, H, W, c]`` -> its self-information map (bits), ``[B, H, W,
+        3]`` for three colours, ``[B, H, W, 1]`` for one.  clrjnt0seqmd
+        conditions each colour on the pixel's earlier colours of
+        ``y_topred``; subtract_mean predicts ``y_topred`` minus the
+        conditioning bands' local mean (and, as in the JAX package, skips
+        the seqmd terms)."""
+        if self.subtract_mean:
+            base, mean = self._base_submean(y_cond)
+            return self.self_informations(self._head(base), y_topred - mean)
+        if self.seq:
+            params = self.params_from_base(self.band_base(y_cond), y_topred,
+                                           2)
+        else:
+            params = self.get_params(y_cond)
+        return self.self_informations(params, y_topred)
+
+    def self_informations(self, params: torch.Tensor,
+                          y: torch.Tensor) -> torch.Tensor:
+        """-log2 p of every pixel and colour of ``y`` under the parameter
+        map's mixtures.  Layouts per clr_joint_mode (JAX
+        ``interpolator.py:320-372``):
+          2: [3M sigma | 3M mu | 3M w | M a | M b | M d];
+             mu_Co += a*Y, mu_Cg += b*Y + d*Co;
+          0: colour i's [M sigma | M mu | M w] at 3iM;
+          1: Y with 2M mixtures, Co and Cg with M; mu_Cg += a*Co
+             (``y`` is (0, Y, Co, Cg));
+          clrchs < 3: one colour [M sigma | M mu | M w]."""
+        M = self.num_mixtures
+        lg = self.logistic
+        if self.clrchs == 3 and self.clr_joint_mode == 2:
+            mean = params[..., 3 * M:6 * M]
+            a = params[..., 9 * M:10 * M]
+            b = params[..., 10 * M:11 * M]
+            d = params[..., 11 * M:12 * M]
+            mean = torch.cat([
+                mean[..., :M], mean[..., M:2 * M] + a * y[..., 0:1],
+                mean[..., 2 * M:] + (b * y[..., 0:1] + d * y[..., 1:2])], -1)
+            return gmm_self_information(y[..., 0:3], params[..., 0:3 * M],
+                                        mean, params[..., 6 * M:9 * M], M,
+                                        logistic=lg)
+        if self.clrchs == 3 and self.clr_joint_mode == 0:
+            def cols(k):  # colour i's k-th block: sigma 0, mu 1, w 2
+                return torch.cat([params[..., (3 * i + k) * M:
+                                         (3 * i + k + 1) * M]
+                                  for i in range(3)], -1)
+            return gmm_self_information(y[..., 0:3], cols(0), cols(1),
+                                        cols(2), M, logistic=lg)
+        if self.clrchs == 3 and self.clr_joint_mode == 1:
+            mean_c = params[..., 10 * M:12 * M]
+            mean_c = torch.cat([
+                mean_c[..., :M],
+                mean_c[..., M:] + params[..., 14 * M:15 * M] * y[..., 2:3]],
+                -1)
+            si_y = gmm_self_information(
+                y[..., 1:2], params[..., 2 * M:4 * M],
+                params[..., 4 * M:6 * M], params[..., 6 * M:8 * M], 2 * M,
+                logistic=lg)
+            si_c = gmm_self_information(
+                y[..., 2:4], params[..., 8 * M:10 * M], mean_c,
+                params[..., 12 * M:14 * M], M, logistic=lg)
+            return torch.cat([si_y, si_c], -1)
+        return gmm_self_information(y[..., 0:1], params[..., 0:M],
+                                    params[..., M:2 * M],
+                                    params[..., 2 * M:3 * M], M, logistic=lg)
+
+
+def _box_mean(x: torch.Tensor, kh: int, kw: int) -> torch.Tensor:
+    """Mean over every kh x kw window of an NCHW tensor (a fixed average
+    pool, no padding): the window's values summed one by one in row-major
+    order, as the JAX package's ``reduce_window`` sums them, then divided,
+    so that the mean, which ``_quant`` rounds at its ties, equals the JAX
+    package's bit for bit."""
+    H, W = x.shape[2] - kh + 1, x.shape[3] - kw + 1
+    s = None
+    for i in range(kh):
+        for j in range(kw):
+            v = x[:, :, i:i + H, j:j + W]
+            s = v if s is None else s + v
+    return ieee_div(s, kh * kw)

@@ -1,9 +1,15 @@
-"""Top-level model for the codec path: the interpolators of every scale.
+"""Top-level model: the interpolators of every scale, their codec entry
+points and the rate forward.
 
-Port of ``llicti_tpu/models/llicti.py:27-33,51-66,110-126``.  Scales share
-interpolators through ``useprevlevNN`` (``cfg.model_index``); each shared
-model holds one network per band, or with ``combine_layers1toL`` one
-network (band -1) for all three bands.
+Port of ``llicti_tpu/models/llicti.py``.  Scales share interpolators
+through ``useprevlevNN`` (``cfg.model_index``); each shared model holds
+one network per band, or with ``combine_layers1toL`` one network (band
+-1) for all three bands.  :meth:`LLICTIModel.forward` is the training and
+validation forward (colour transform, mean shift, float lazy wavelet,
+per-scale self-information); it leaves the cuDNN / TF32 flags to the
+caller (a codec-equal forward on the card runs under
+:func:`llicti_torch.codec.exact_math`).  ``aux_loss`` (the factorized
+prior) comes with training.
 """
 from __future__ import annotations
 
@@ -13,6 +19,8 @@ import torch
 from torch import nn
 
 from ..config import ModelConfig
+from ..ops.color import rgb_to_ycocg_r
+from ..ops.wavelet import lazy_dwt
 from .interpolator import Interpolator
 
 
@@ -45,7 +53,7 @@ class LLICTIModel(nn.Module):
                     band: int) -> torch.Tensor:
         """GMM parameter map ``[B, H, W, Co]`` of one (scale, band) from its
         conditioning bands ``[B, H, W, c*(band+1)]``."""
-        return self._band_model(scale, band)(y_cond)
+        return self._band_model(scale, band).get_params(y_cond)
 
     def band_base(self, y_cond: torch.Tensor, scale: int,
                   band: int) -> torch.Tensor:
@@ -58,3 +66,38 @@ class LLICTIModel(nn.Module):
         (clrjnt0seqmd)."""
         return self._band_model(scale, band).params_from_base(base, y_seq,
                                                               clr)
+
+    def transform(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """RGB ``[B, H, W, 3]`` in [0, 1] (H, W multiples of the coarsest
+        stride) -> the per-scale bands ``[B, h, w, 4c]``: float YCoCg-R
+        (or RGB) shifted by 127/255, clrjnt 1's zero channel in front, or
+        the one channel ``clrchs`` of the single-channel variants."""
+        cfg = self.cfg
+        if cfg.ycocg:
+            x = rgb_to_ycocg_r(x, cfg.rndfactor)
+            x = torch.cat((x[..., :1] - cfg.mean_y_ycocg, x[..., 1:]), dim=-1)
+        else:
+            x = x - cfg.mean_y_ycocg
+        if cfg.clrchs == 3:
+            if cfg.clr_joint_mode == 1:
+                x = torch.cat((torch.zeros_like(x[..., :1]), x), dim=-1)
+            return lazy_dwt(x, cfg.dwtlevels)
+        return lazy_dwt(x[..., cfg.clrchs:cfg.clrchs + 1],
+                        tuple(range(cfg.num_scales)))
+
+    def entropy_forward(self, y_list: List[torch.Tensor]
+                        ) -> List[torch.Tensor]:
+        """Per scale, the self-information of bands 1..3 given the bands
+        before them: ``[B, h, w, 9]`` (``[B, h, w, 3]`` for one colour),
+        band-major."""
+        c = self.cfg.cond_channels
+        return [torch.cat([
+            self._band_model(s, b)(y_lev[..., :c * (b + 1)],
+                                   y_lev[..., c * (b + 1):c * (b + 2)])
+            for b in range(3)], dim=-1) for s, y_lev in enumerate(y_list)]
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """RGB ``[B, H, W, 3]`` in [0, 1] -> the self-information maps of
+        every scale, finest first (bits; their sum is the rate
+        estimate)."""
+        return self.entropy_forward(self.transform(x))

@@ -21,7 +21,8 @@ import torch
 
 from .. import _kernels
 from .bounds import lower_bound
-from .gmm import SCALE_BOUND_LOGISTIC, SCALE_BOUND_NORMAL, WEIGHT_BOUND
+from .gmm import (SCALE_BOUND_LOGISTIC, SCALE_BOUND_NORMAL, WEIGHT_BOUND,
+                  _sigmoid)
 
 _SQRT2_INV = np.float32(2 ** -0.5)
 # Abramowitz-Stegun 7.1.26 erf coefficients (|err| < 1.5e-7)
@@ -46,12 +47,6 @@ def _erf_as(x: torch.Tensor) -> torch.Tensor:
 
 def _phi(z: torch.Tensor) -> torch.Tensor:
     return 0.5 * (1.0 + _erf_as(z * _f32(_SQRT2_INV, z)))
-
-
-def _sigmoid(z: torch.Tensor) -> torch.Tensor:
-    # jax.nn.sigmoid lowers to 1 / (1 + exp(-z)) (stablehlo negate,
-    # exponential, add, divide); torch.sigmoid rounds differently
-    return 1.0 / (1.0 + torch.exp(-z))
 
 
 def _quantise(acc: torch.Tensor) -> torch.Tensor:

@@ -1,13 +1,45 @@
-"""Exact integer YCoCg-R lifting (JVT-I014r3) for the codec path.
+"""YCoCg-R lifting colour transform (JVT-I014r3).
 
-Port of ``llicti_tpu/ops/color.py:41-81``.  Channels last: ``[..., 3]`` is
-(R, G, B) or (Y, Co, Cg).  Floor-division lifting, so every value is
-exact on any device.  The float (training) transform is not ported yet.
+Port of ``llicti_tpu/ops/color.py``.  Channels last: ``[..., 3]`` is
+(R, G, B) or (Y, Co, Cg).  The codec path uses the exact integer lifting
+(floor division, exact on any device); the rate estimate uses the float
+lifting, rounded to ``rndfactor`` steps half to even as ``jnp.round``
+rounds.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def ieee_div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """``x / d`` rounded as one IEEE division on every device.  PyTorch's
+    CUDA kernels multiply by the reciprocal of a Python-number divisor,
+    which can land an ulp off the quotient, and a value an ulp off a
+    rounding tie (of the lifting, of a quantised mean) then rounds the
+    other way than on the CPU and in the JAX package."""
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)
+
+
+def rgb_to_ycocg_r(x: torch.Tensor,
+                   rndfactor: float = 255.0) -> torch.Tensor:
+    """Float forward lifting of RGB in [0, 1]."""
+    R, G, B = x[..., 0], x[..., 1], x[..., 2]
+    Co = R - B
+    t = B + ieee_div(torch.round(Co * rndfactor / 2), rndfactor)
+    Cg = G - t
+    Y = t + ieee_div(torch.round(Cg * rndfactor / 2), rndfactor)
+    return torch.stack((Y, Co, Cg), dim=-1)
+
+
+def ycocg_r_to_rgb(x: torch.Tensor, rndfactor: float = 255.0) -> torch.Tensor:
+    """Float inverse lifting of :func:`rgb_to_ycocg_r`."""
+    Y, Co, Cg = x[..., 0], x[..., 1], x[..., 2]
+    t = Y - ieee_div(torch.round(Cg * rndfactor / 2), rndfactor)
+    G = Cg + t
+    B = t - ieee_div(torch.round(Co * rndfactor / 2), rndfactor)
+    R = B + Co
+    return torch.stack((R, G, B), dim=-1)
 
 
 def _half(x: torch.Tensor) -> torch.Tensor:

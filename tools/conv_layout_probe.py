@@ -27,6 +27,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 from llicti_torch import ModelConfig, load_npz, params_from_flax  # noqa: E402
+from llicti_torch.codec import exact_math  # noqa: E402
 
 
 def band_params_all(model, y):
@@ -71,15 +72,11 @@ def main() -> None:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("conv_layout_probe: CUDA is not available")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.benchmark = False
-    torch.backends.cudnn.deterministic = True
     nchw = params_from_flax(load_npz(), ModelConfig()).cuda()
     last = copy.deepcopy(nchw).to(memory_format=torch.channels_last)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    with torch.inference_mode():
+    with torch.inference_mode(), exact_math():
         for K in args.k:
             y = torch.rand((K, 256, 384, 12), generator=gen,
                            device="cuda") * 0.8 - 0.4

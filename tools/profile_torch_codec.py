@@ -4,6 +4,7 @@
 Usage: python3 tools/profile_torch_codec.py [--tree DIR] [--runs 15]
                                             [--no-profile] [--batch K]
                                             [--two-stage] [--stages]
+                                            [--host-backend] [--rate]
 
 Imports ``llicti_torch`` from ``DIR`` (default: this repository; give an
 unpacked older tree to compare two versions in one run) and round-trips
@@ -24,8 +25,12 @@ the times of ``compress_batch`` / ``decompress_batch`` of K images
 (seeds 42, 43, ...) and a profile of each and of the resident closures
 (``prepare_decode``, ``prepare_encode``, ``prepare_decode_batch``); with
 ``--two-stage``, the decode times of a ``two_stage`` codec and the fused
-one in turns, and a profile of the two-stage decode.  The last line is
-the card's name and power limit.
+one in turns, and a profile of the two-stage decode.  Trees with the host
+backend and the rate forward also give, with ``--host-backend``, the
+encode and decode times of a ``backend="host"`` codec and a profile of
+each direction, and with ``--rate``, the times of the flagship's rate
+forward (``LLICTIModel.forward`` under ``exact_math``) and its profile.
+The last line is the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -234,6 +239,42 @@ def two_stage(codec, img, args) -> None:
         profile(lambda: split.decompress(streams), "two-stage decode")
 
 
+def host_backend(img, args) -> None:
+    """Round trips of a host-backend codec: times and profiles."""
+    from llicti_torch import Codec, ModelConfig, load_npz
+    host = Codec(ModelConfig(), load_npz(), device="cuda", num_lanes=1024,
+                 backend="host")
+    streams = host.compress(img)
+    host.decompress(streams)
+    enc, dec = [], []
+    for _ in range(args.runs):
+        streams, ms = timed(lambda: host.compress(img))
+        enc.append(ms)
+        dec.append(timed(lambda: host.decompress(streams))[1])
+    print(f"host backend: {Codec.num_bytes(streams)} bytes, bpsp "
+          f"{Codec.num_bytes(streams) * 8 / img.size:.4f}")
+    medians("host-backend encode", enc)
+    medians("host-backend decode", dec)
+    if not args.no_profile:
+        profile(lambda: host.compress(img), "host-backend encode")
+        profile(lambda: host.decompress(streams), "host-backend decode")
+
+
+def rate(codec, img, args) -> None:
+    """The flagship's rate forward on the card: times and a profile."""
+    from llicti_torch.codec import exact_math
+    x = torch.from_numpy(img[None].astype("float32") / 255.0).cuda()
+
+    def forward():
+        with torch.inference_mode(), exact_math():
+            return codec.model(x)
+
+    forward()
+    medians("rate forward", [timed(forward)[1] for _ in range(args.runs)])
+    if not args.no_profile:
+        profile(forward, "rate forward")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(
@@ -243,6 +284,8 @@ def main() -> None:
     ap.add_argument("--batch", type=int, default=0)
     ap.add_argument("--two-stage", action="store_true")
     ap.add_argument("--stages", action="store_true")
+    ap.add_argument("--host-backend", action="store_true")
+    ap.add_argument("--rate", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_codec: CUDA is not available")
@@ -281,6 +324,10 @@ def main() -> None:
         serving(codec, img, args)
     if args.two_stage:
         two_stage(codec, img, args)
+    if args.host_backend:
+        host_backend(img, args)
+    if args.rate:
+        rate(codec, img, args)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
