@@ -76,7 +76,24 @@ Phases, each of which raises on failure:
      at 512x768 under exact_math against the CPU forward of the same
      weights (per-(scale, band, colour) sums within 1e-4 relative, maps
      within rtol 1e-4 and atol RATE_ATOL bits), its ms, and the est/act gap
-     against phase 5's container.
+     against phase 5's container;
+  11. training at flagship width, each part with the launch counts of
+     Kernels 1-4 set to 0 just before it and read just after (all must
+     stay 0): (a) one train step of the trained weights on a
+     [2, 2, 160, 160, 3] TrainLoader batch (synthetic set, seed 1337) under
+     exact_math on the card and on the CPU: the loss within 1e-5 and the
+     breakdown within 1e-4 relative, every gradient within 1e-2 of its
+     max|g_cpu| and card and CPU alike within GRAD_L2_BOUND (relative L2)
+     of the step's float64 gradient, the parameters after Adam within
+     1e-3 lr in 99.9 % of entries and 2 lr in all, and whether a second
+     card step is bit-identical; (b) the Trainer on the card at
+     configs/paper_a.json's train settings over 320 synthetic images: five
+     finite losses, checkpoint and model_best, a resume with equal
+     parameters and Adam state that runs iterations 5-10, and the loop's
+     ms from a step's end to the next's; (c) ms an optimiser step (batch
+     2 x 32 of 160^2) under PyTorch's default flags and under exact_math,
+     patches a second, peak memory, and the loader's ms a batch on its
+     own, beside the card's name and power limit.
 The line before the last is {"kernels": [...]}: Kernel 2's and Kernel 3's
 rows also carry the batch figures (batch_k, batch_ms, batch_plain_ms,
 batch_bound_ms, batch_launches); the last line is {"ok": true, "device":
@@ -84,11 +101,14 @@ batch_bound_ms, batch_launches); the last line is {"ok": true, "device":
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -99,11 +119,15 @@ from llicti_torch import (Codec, ModelConfig, _kernels, load_npz,
 from llicti_torch import codec as cmod
 from llicti_torch.codec import exact_math
 from llicti_torch.coder import rans
+from llicti_torch.config import config_from_json, replace
+from llicti_torch.data import ImageDataset, TrainLoader
 from llicti_torch.ops import cdf
 from llicti_torch.ops.color import rgb_int_to_ycocg_r_int
 from llicti_torch.ops.bounds import lower_bound
 from llicti_torch.ops.gmm import SCALE_BOUND_NORMAL, cdf_sampling_points
 from llicti_torch.ops.wavelet import lazy_dwt
+from llicti_torch.training import Trainer, make_optimizer, make_train_step
+from llicti_torch.training.loss import rate_loss_list
 from llicti_torch.weights import init_params, params_from_flax
 
 # (label, ModelConfig knobs, trained weights?, also 310x598?)
@@ -1296,6 +1320,253 @@ def slice_phase(codec, params, counters, images) -> None:
     print(f"rate forward: {time.perf_counter() - t0:.2f} s")
 
 
+TRAIN_SEED = 1337  # configs/paper_a.json's seed
+TRAIN_LR = 1e-4  # configs/paper_a.json's learning rate
+TIMED_STEPS = 6  # optimiser steps timed after the first, per flag setting
+# a float32 gradient's relative L2 distance from the float64 one: the
+# trained weights sit near a minimum, where a gradient is a small sum of
+# large cancelling terms; on an NVIDIA H100 (700 W) the band-2 gradients
+# came 7.98e-4 from float64 (the CPU's 1.28e-4); a wrong one is O(1)
+GRAD_L2_BOUND = 1e-2
+
+
+def train_snapshot(model, opt):
+    """(parameters, gradients, Adam state) of a model after a step, on
+    the CPU."""
+    params = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+    state = {k: {key: v.detach().cpu() for key, v in s.items()}
+             for k, s in opt.state_dict()["state"].items()}
+    return params, grads, state
+
+
+def one_train_step(cfg, params, batch, device):
+    """One clip + Adam step of the trained flagship on ``batch`` [acc, B,
+    H, W, 3] -> (metrics on the CPU, snapshot)."""
+    model = params_from_flax(params, cfg).to(device).train()
+    opt = make_optimizer(model, TRAIN_LR)
+    step = make_train_step(model, opt)
+    x = torch.from_numpy(batch).to(device)
+    with exact_math():
+        m = step(x)
+    return ({k: v.cpu() for k, v in m.items()}, train_snapshot(model, opt))
+
+
+def float64_grads(cfg, params, batch):
+    """The train step's gradients (summed over the microbatches, divided,
+    clipped at 5) in float64 on the CPU, from the float32 model's bands,
+    so that the function is the float32 step's (YCoCg-R's rounding ties
+    fall differently in float64)."""
+    model32 = params_from_flax(params, cfg)
+    model = params_from_flax(params, cfg).double()
+    for xb in torch.from_numpy(batch):
+        with torch.no_grad():
+            bands = [y.double() for y in model32.transform(xb)]
+        total, _ = rate_loss_list(xb.numel(), model.entropy_forward(bands))
+        total.backward()
+    return {n: (p.grad / len(batch)).clamp(-5.0, 5.0)
+            for n, p in model.named_parameters()}
+
+
+def train_compare(counters) -> None:
+    """(a) one train step on the card under exact_math against one on the
+    CPU from the same trained weights and the same loader batch: the loss
+    within 1e-5 and the breakdown within 1e-4 relative, every gradient
+    within 1e-2 of its max|g_cpu| and, card and CPU alike, within
+    GRAD_L2_BOUND of the step's float64 gradient; the parameters after
+    Adam within 1e-3 lr in 99.9 % of entries and within 2 lr (and two
+    ulps) in all.  Prints the largest deviations and whether a second
+    card step is bit-identical."""
+    cfg = ModelConfig()
+    params = load_npz()
+    ds = ImageDataset(synthetic_len=4, synthetic_size=160, seed=TRAIN_SEED)
+    batch = next(iter(TrainLoader(ds, 2, 160, grad_acc=2, seed=TRAIN_SEED)))
+    check(batch.shape == (2, 2, 160, 160, 3), f"batch {batch.shape}")
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    m_gpu, (p_gpu, g_gpu, s_gpu) = one_train_step(cfg, params, batch, "cuda")
+    torch.cuda.synchronize()
+    gpu_s = time.perf_counter() - t0
+    read_zero_counts(counters, "the train step")
+    _, (p_again, g_again, _) = one_train_step(cfg, params, batch, "cuda")
+    differ = [n for n in g_gpu if not torch.equal(g_gpu[n], g_again[n])]
+    t0 = time.perf_counter()
+    m_cpu, (p_cpu, g_cpu, s_cpu) = one_train_step(cfg, params, batch, "cpu")
+    cpu_s = time.perf_counter() - t0
+    g64 = float64_grads(cfg, params, batch)
+    loss_rel = abs(float(m_gpu["loss"]) - float(m_cpu["loss"])) / abs(
+        float(m_cpu["loss"]))
+    bd_rel = float(((m_gpu["breakdown"] - m_cpu["breakdown"]).abs()
+                    / m_cpu["breakdown"].abs()).max())
+    g_dev, worst = 0.0, None  # card against CPU, of the tensor's max|g_cpu|
+    for n in g_cpu:
+        dev = float((g_gpu[n] - g_cpu[n]).abs().max() / g_cpu[n].abs().max())
+        if dev >= g_dev:
+            g_dev, worst = dev, n
+    # each float32 gradient's L2 distance from the float64 one, relative
+    l2 = {n: [float((g[n].double() - g64[n]).norm() / g64[n].norm())
+              for g in (g_gpu, g_cpu)] for n in g64}
+    d = torch.cat([(p_gpu[n] - p_cpu[n]).abs().flatten() for n in p_cpu])
+    ulps = torch.cat([p_cpu[n].abs().flatten() for n in p_cpu]) * 2 * (
+        torch.finfo(torch.float32).eps)
+    within = float((d <= 1e-3 * TRAIN_LR).double().mean())
+    print(f"train step [2, 2, 160, 160, 3], trained flagship, lr "
+          f"{TRAIN_LR}: card {gpu_s:.2f} s (first call), CPU {cpu_s:.2f} s; "
+          f"loss card {float(m_gpu['loss']):.6f} CPU "
+          f"{float(m_cpu['loss']):.6f} ({loss_rel:.3g} relative); breakdown "
+          f"{bd_rel:.3g} relative; largest gradient deviation {g_dev:.3g} "
+          f"of the tensor's max|g_cpu| ({worst}); parameters after Adam: "
+          f"largest deviation {float(d.max()):.3g} "
+          f"({float(d.max()) / TRAIN_LR:.3g} lr), {100 * within:.4f} % of "
+          f"{d.numel()} entries within 1e-3 lr; a second card step "
+          f"bit-identical: {not differ} ({len(differ)} gradient tensors "
+          f"differ{': ' if differ else ''}{', '.join(differ[:4])})")
+    print("train step gradients against float64, relative L2 (card, CPU): "
+          + ", ".join(f"{n} {a:.3g} {b:.3g}" for n, (a, b) in l2.items()))
+    check(loss_rel <= 1e-5, "train step: the card's loss differs from the CPU's")
+    check(bd_rel <= 1e-4, "train step: the breakdown differs from the CPU's")
+    check(g_dev <= 1e-2, "train step: a gradient of the card differs from "
+          "the CPU's by more than 1e-2 of its max|g_cpu|")
+    for n, (card, cpu) in l2.items():
+        check(max(card, cpu) <= GRAD_L2_BOUND, f"train step: the gradient of "
+              f"{n} is further than {GRAD_L2_BOUND} (relative L2) from the "
+              f"float64 one: card {card:.3g}, CPU {cpu:.3g}")
+    check(within >= 0.999 and bool((d <= 2 * TRAIN_LR + ulps).all()),
+          "train step: the parameters after Adam differ from the CPU's")
+    for k in s_cpu:
+        check(float(s_gpu[k]["step"]) == float(s_cpu[k]["step"]) == 1,
+              "train step: Adam's step count")
+
+
+def states_equal(a, b) -> bool:
+    """Model and Adam state of two trainers bit for bit."""
+    sa, sb = a.optimizer.state_dict(), b.optimizer.state_dict()
+    return (all(torch.equal(x, y) for x, y in zip(a.model.state_dict().values(),
+                                                  b.model.state_dict().values()))
+            and sa["param_groups"] == sb["param_groups"]
+            and all(torch.equal(sa["state"][k][key], sb["state"][k][key])
+                    for k in sa["state"] for key in sa["state"][k]))
+
+
+def trainer_phase(counters, root: str) -> None:
+    """(b) the Trainer on the card at configs/paper_a.json's train
+    settings, 320 synthetic images (5 steps an epoch), one epoch, then a
+    resume to the second."""
+    base = config_from_json(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "configs", "paper_a.json"))
+    check(base.model == ModelConfig(), "paper_a's model is not the flagship")
+    cfg = replace(base, experiments_root=root,
+                  train=replace(base.train, max_epoch=1),
+                  data=replace(base.data, synthetic_len=320))
+    losses, ends = [], []
+
+    def recorded(tr):
+        step = tr.train_step
+
+        def run_step(batch):
+            m = step(batch)
+            losses.append(float(m["loss"]))  # waits for the step
+            ends.append(time.perf_counter())
+            return m
+        tr.train_step = run_step
+        return tr
+
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    tr = recorded(Trainer(cfg))
+    check(tr.device.type == "cuda", "Trainer did not default to the card")
+    tr.run()
+    tr.finalize()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(tr.current_iteration == 5, f"{tr.current_iteration} iterations, "
+          "expected 5")
+    # the Trainer's loop from one step's end to the next: loader wait,
+    # upload, step and logging
+    loop_ms = sorted(1e3 * (b - a) for a, b in zip(ends, ends[1:]))
+    check(len(losses) == 5 and all(math.isfinite(v) for v in losses),
+          f"a loss is not finite: {losses}")
+    check(tr.ckpt.exists("checkpoint") and tr.ckpt.exists("model_best"),
+          "checkpoint or model_best missing")
+    tr2 = recorded(Trainer(replace(cfg, train=replace(
+        cfg.train, resume_training=True, max_epoch=2))))
+    check(tr2.current_iteration == 5, "the resume did not start at 5")
+    check(states_equal(tr, tr2), "the resumed parameters or Adam state "
+          "differ from those saved")
+    tr2.run()
+    check(tr2.current_iteration == 10, f"the resume ended at "
+          f"{tr2.current_iteration}, expected 10")
+    got = read_zero_counts(counters, "the Trainer")
+    print(f"Trainer (paper_a train settings, 320 synthetic images): epoch 0 "
+          f"in {wall:.1f} s with validation and checkpoints, "
+          f"{loop_ms[len(loop_ms) // 2]:.1f} ms from a step's end to the "
+          f"next's (median of {len(loop_ms)}, {card_line()}), losses "
+          f"{[round(v, 4) for v in losses[:5]]}; resumed at iteration 5 with "
+          f"equal parameters and Adam state, ran to 10, losses "
+          f"{[round(v, 4) for v in losses[5:]]}; best valid loss "
+          f"{tr2.best_valid_loss:.4f}; hand-kernel launches {got}")
+
+
+def read_zero_counts(counters, label: str):
+    got = {name: fn.launches for name, fn in counters.items()}
+    check(all(v == 0 for v in got.values()),
+          f"{label} launched a hand kernel: {got}")
+    return got
+
+
+def train_timing(counters) -> None:
+    """(c) ms an optimiser step of the flagship at batch 32 x 160^2, acc
+    2, from random weights: the median of TIMED_STEPS steps after the
+    first, under PyTorch's default flags and under exact_math; patches a
+    second, peak memory; the loader's ms a batch on its own."""
+    cfg = ModelConfig()
+    ds = ImageDataset(synthetic_len=320, synthetic_size=160, seed=TRAIN_SEED)
+    loader = TrainLoader(ds, 32, 160, grad_acc=2, seed=TRAIN_SEED,
+                         num_threads=2)
+    t0 = time.perf_counter()
+    batches = list(loader)
+    load_ms = 1e3 * (time.perf_counter() - t0) / len(batches)
+    x = torch.from_numpy(batches[0]).pin_memory()
+    _, up_ms = timed(lambda: x.to("cuda", non_blocking=True))
+    xd = x.to("cuda")
+    flags = "default flags " + str(read_flags())
+    reset_counts(counters)
+    for label, ctx in ((flags, contextlib.nullcontext),
+                       ("exact_math", exact_math)):
+        model = params_from_flax(init_params(cfg, TRAIN_SEED), cfg).cuda()
+        step = make_train_step(model, make_optimizer(model, TRAIN_LR))
+        torch.cuda.reset_peak_memory_stats()
+        with ctx():
+            times = [timed(lambda: step(xd))[1]
+                     for _ in range(TIMED_STEPS + 1)]
+        ms = sorted(times[1:])[TIMED_STEPS // 2]
+        print(f"train step timing, {label}: first {times[0]:.1f} ms, median "
+              f"of the next {TIMED_STEPS} {ms:.2f} ms (min {min(times[1:]):.2f},"
+              f" max {max(times[1:]):.2f}), {64 / ms * 1e3:.1f} patches a "
+              f"second, peak memory {peak_mib():.1f} MiB; {card_line()}")
+        del model, step
+        torch.cuda.empty_cache()
+    read_zero_counts(counters, "the timed train steps")
+    print(f"train loader: {load_ms:.1f} ms a batch of 64 patches on its own "
+          f"(one epoch of {len(batches)} batches, 2 threads), upload "
+          f"{up_ms:.2f} ms pinned; {card_line()}")
+
+
+def train_phase(counters) -> None:
+    """Phase 11: training at flagship width, each part with the launch
+    counts set to 0 just before it and read just after."""
+    t0 = time.perf_counter()
+    train_compare(counters)
+    print(f"train (a): {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        trainer_phase(counters, root)
+    print(f"train (b): {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    train_timing(counters)
+    print(f"train (c): {time.perf_counter() - t0:.2f} s")
+
+
 def build_phase():
     """Build the kernels; print and check ptxas's report, Kernel 1's
     occupancy and the saturation shortcuts."""
@@ -1395,6 +1666,9 @@ def main() -> None:
         "310x598": (odd, odd_streams, None, None)})
     print(f"rate / host backend / exact-math phase: "
           f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    train_phase(dict(counters, gmm_cdf_table_int32=cdf.gmm_cdf_table_int32))
+    print(f"training phase: {time.perf_counter() - t0:.2f} s")
     check("jax" not in sys.modules, "jax was imported")
     check(not any(m.startswith("llicti_tpu") for m in sys.modules),
           "the JAX package was imported")

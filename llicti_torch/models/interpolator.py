@@ -14,7 +14,8 @@ channel groups through ``seq_toCo`` / ``seq_toCg``
 self-information of the band to predict, for every configuration the
 JAX package trains (clrjnt 0 / 1 / 2, clrchs < 3, subtract_mean).  Public
 tensors are NHWC like the JAX package's; inside, the convs run NCHW.
-Forward only: gradients through the bounds come with training.
+The conditioning and predicted bands are data: no gradient flows into
+them, only into the parameters.
 """
 from __future__ import annotations
 

@@ -8,8 +8,9 @@ one network per band, or with ``combine_layers1toL`` one network (band
 validation forward (colour transform, mean shift, float lazy wavelet,
 per-scale self-information); it leaves the cuDNN / TF32 flags to the
 caller (a codec-equal forward on the card runs under
-:func:`llicti_torch.codec.exact_math`).  ``aux_loss`` (the factorized
-prior) comes with training.
+:func:`llicti_torch.codec.exact_math`).  :meth:`LLICTIModel.aux_loss` sums
+the quantile loss of any factorized prior a band model holds (none in the
+live model, as in the JAX package).
 """
 from __future__ import annotations
 
@@ -101,3 +102,20 @@ class LLICTIModel(nn.Module):
         every scale, finest first (bits; their sum is the rate
         estimate)."""
         return self.entropy_forward(self.transform(x))
+
+    def aux_loss(self) -> torch.Tensor:
+        """Aggregated quantile aux loss over factorized-prior bottleneck
+        submodules (reference LLICTIBaseNet.aux_loss, LLICTI_nets.py:31-38).
+
+        Vestigial like the reference's: the live interpolator stack holds
+        no factorized prior, so the sum is empty (0 on the model's
+        device); a band model that holds an
+        :class:`llicti_torch.ops.factorized.FactorizedPrior` as
+        ``factorized_prior`` contributes its :meth:`loss`."""
+        total = torch.zeros((), device=next(self.parameters()).device)
+        for bands in self.models:
+            for mdl in bands:
+                prior = getattr(mdl, "factorized_prior", None)
+                if prior is not None:
+                    total = total + prior.loss()
+        return total

@@ -6,10 +6,8 @@ mixture.  Scales are lower-bounded at 0.11/255 (normal) or 0.04
 (logistic), mixture weights at 1e-6 and then renormalised (not a
 softmax), the likelihood at 1e-9.  The CDF tables of the host backend's
 range coder are evaluated on :func:`cdf_sampling_points` and quantised to
-its uint16 contract by :func:`cdf_float_to_uint16`.
-
-Forward only: ``lower_bound`` here is ``max(x, bound)``; the JAX package's
-custom gradient of it is training code, not ported yet.
+its uint16 contract by :func:`cdf_float_to_uint16`.  The bounds pass
+gradients as the JAX package's ``lower_bound`` does (``ops/bounds.py``).
 """
 from __future__ import annotations
 

@@ -1,0 +1,100 @@
+"""Train and eval steps: grad accumulation, value clipping, Adam.
+
+Port of ``llicti_tpu/training/steps.py``.  Semantics match the reference
+agent (agents/llicti_agent.py:48-83): per-microbatch gradients of the
+total rate are summed, then divided by the number of microbatches (the
+JAX package's order), gradient values clipped element-wise at
+``clip_value`` (torch ``clip_grad_value_``, reference
+llicti_agent.py:65), then one Adam step (beta 0.9 / 0.999, eps 1e-8: the
+optax defaults).  A Python loop over the leading microbatch axis takes the
+place of the JAX package's ``lax.scan``.  The learning rate lives on the
+optimiser's parameter group, so the plateau scheduler sets it between
+steps (:func:`set_learning_rate`).
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Tuple
+
+import torch
+from torch import nn
+
+from .loss import rate_loss_list
+
+
+def make_optimizer(model: nn.Module,
+                   learning_rate: float) -> torch.optim.Adam:
+    """Adam over the model's parameters, with optax's defaults."""
+    return torch.optim.Adam(model.parameters(), lr=learning_rate,
+                            betas=(0.9, 0.999), eps=1e-8)
+
+
+def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    for group in optimizer.param_groups:
+        group["lr"] = lr
+
+
+def get_learning_rate(optimizer: torch.optim.Optimizer) -> float:
+    return float(optimizer.param_groups[0]["lr"])
+
+
+def apply_gradients(optimizer: torch.optim.Optimizer,
+                    clip_value: float = 5.0) -> None:
+    """Clip the gradients (``.grad``) of the optimiser's parameters
+    element-wise at +-``clip_value``, then take its step: optax's
+    ``chain(clip(clip_value), adam(lr))``."""
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+    with torch.no_grad():
+        for p in params:
+            if p.grad is None:  # optax updates every leaf, zeros too
+                p.grad = torch.zeros_like(p)
+        torch.nn.utils.clip_grad_value_(params, clip_value)
+    optimizer.step()
+
+
+def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
+                    clip_value: float = 5.0
+                    ) -> Callable[[torch.Tensor], Dict[str, torch.Tensor]]:
+    """Returns step(batch) -> metrics, which updates the model in place.
+
+    batch: [acc, B, H, W, 3] on the model's device; the leading axis is
+    the grad-accumulation microbatch (acc=1 for plain steps).
+    metrics: {"loss": scalar mean rate, "breakdown": [S, 9] mean}, device
+    tensors (reading them waits for the step).
+    """
+    params = list(model.parameters())
+    cfg = model.cfg
+    # breakdown width: 3 bands x colors (9 for clrchs=3, 3 for the
+    # single-channel clrchs<3 variants)
+    width = 9 if cfg.clrchs == 3 else 3
+
+    def step(batch: torch.Tensor) -> Dict[str, torch.Tensor]:
+        acc = batch.shape[0]
+        optimizer.zero_grad(set_to_none=True)
+        loss_sum = torch.zeros((), device=batch.device)
+        bd_sum = torch.zeros((cfg.num_scales, width), device=batch.device)
+        for xb in batch:
+            total, bd = rate_loss_list(xb.numel(), model(xb))
+            total.backward()  # sums into .grad across microbatches
+            loss_sum = loss_sum + total.detach()
+            bd_sum = bd_sum + bd.detach()
+        with torch.no_grad():
+            for p in params:
+                if p.grad is not None:
+                    p.grad.div_(acc)
+        apply_gradients(optimizer, clip_value)
+        return {"loss": loss_sum / acc, "breakdown": bd_sum / acc}
+
+    return step
+
+
+def make_eval_step(model: nn.Module
+                   ) -> Callable[[torch.Tensor],
+                                 Tuple[torch.Tensor, torch.Tensor]]:
+    """Returns eval_step(batch [B, H, W, 3]) -> (total, breakdown), with no
+    gradient recorded."""
+
+    def eval_step(batch: torch.Tensor):
+        with torch.no_grad():
+            return rate_loss_list(batch.numel(), model(batch))
+
+    return eval_step

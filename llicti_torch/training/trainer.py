@@ -1,0 +1,294 @@
+"""Experiment runtime: the agent equivalent (train/validate/test loops).
+
+Port of ``llicti_tpu/training/trainer.py``.  Mirrors the reference
+lifecycle (agents/base.py:13-150, agents/llicti_agent.py:14-207):
+* epoch loop with mid-epoch validation + best-checkpoint every
+  loss_prnt_iters optimizer steps,
+* ReduceLROnPlateau stepped on validation loss,
+* checkpoint-on-exception and checkpoint-on-finalize,
+* model_size estimation from the parameters.
+
+The trainer runs on the CUDA card unless it is given ``device="cpu"``.
+It sets no process-wide cuDNN or TF32 flag: the caller's apply (PyTorch's
+defaults let cuDNN use TF32).  Host batches are uploaded pinned and
+``non_blocking``.  Not ported yet: the modes ``eval_model`` (the codec
+round trip over the test set) and ``flops_est`` (ROADMAP A5), and data
+parallelism over several cards (``num_data_shards > 1``, ROADMAP A6).
+"""
+from __future__ import annotations
+
+import logging
+import os
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..config import LLICTIConfig
+from ..data.dataset import EvalLoader, ImageDataset, TrainLoader
+from ..utils.checkpoint import CheckpointManager
+from ..utils.logging_utils import RateLogger, setup_logging
+from ..utils.notify import Notifier
+from ..weights import init_params, params_from_flax
+from .schedule import ReduceLROnPlateau
+from .steps import (get_learning_rate, make_eval_step, make_optimizer,
+                    make_train_step, set_learning_rate)
+
+
+def pad_to_multiple(x: np.ndarray, mult: int) -> np.ndarray:
+    """Replicate-pad H, W (axis 1, 2) up to a multiple (reference
+    agents/llicti_agent.py:105-113)."""
+    h, w = x.shape[1], x.shape[2]
+    nh = -(-h // mult) * mult
+    nw = -(-w // mult) * mult
+    if nh == h and nw == w:
+        return x
+    return np.pad(x, ((0, 0), (0, nh - h), (0, nw - w), (0, 0)), mode="edge")
+
+
+class Trainer:
+    def __init__(self, config: LLICTIConfig, device="cuda"):
+        self.config = config
+        cfg = config.model
+        tc = config.train
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "Trainer runs on the CUDA card by default and none is "
+                "available; pass device='cpu' to train on the CPU")
+        if tc.num_data_shards > 1:
+            raise NotImplementedError(
+                f"num_data_shards={tc.num_data_shards}: data parallelism "
+                "over several cards is not ported yet (ROADMAP A6)")
+        setup_logging(config.log_dir)
+        self.logger = logging.getLogger("Agent")
+
+        # datasets
+        dc = config.data
+        if dc.synthetic or not dc.train_dirs:
+            train_ds = ImageDataset(synthetic_len=dc.synthetic_len,
+                                    synthetic_size=max(tc.patch_size, 64),
+                                    seed=tc.seed)
+            valid_ds = ImageDataset(synthetic_len=max(4, dc.synthetic_len // 32),
+                                    synthetic_size=max(tc.patch_size, 64),
+                                    seed=tc.seed + 1)
+            test_ds = valid_ds
+        else:
+            train_ds = ImageDataset(dc.train_dirs)
+            valid_ds = ImageDataset([dc.valid_dir])
+            test_ds = ImageDataset([dc.test_dir])
+        self.train_loader = TrainLoader(
+            train_ds, tc.batch_size, tc.patch_size, tc.grad_acc_iters,
+            tc.patches_per_img, seed=tc.seed,
+            num_threads=max(1, dc.dl_numworkers))
+        self.valid_loader = EvalLoader(valid_ds, tc.val_patch_size,
+                                       batch_size=tc.val_batch_size)
+        self.test_loader = EvalLoader(test_ds, 0)
+
+        # state
+        self.model = params_from_flax(init_params(cfg, seed=tc.seed),
+                                      cfg).to(self.device).train()
+        self.optimizer = make_optimizer(self.model, tc.learning_rate)
+        self.train_step = make_train_step(self.model, self.optimizer,
+                                          tc.grad_clip_value)
+        self.eval_step = make_eval_step(self.model)
+
+        self.scheduler = ReduceLROnPlateau(
+            lr=tc.learning_rate, factor=tc.lr_factor, patience=tc.lr_patience,
+            cooldown=tc.lr_cooldown, min_lr=tc.lr_min,
+            threshold=tc.lr_threshold)
+        self.train_logger = RateLogger()
+        self.trnit_logger = RateLogger()
+        self.valid_logger = RateLogger()
+        # failure/completion notifications land in the experiment's event
+        # log (SMTP transport available via Notifier fields)
+        self.notifier = Notifier(
+            event_log=os.path.join(config.log_dir, "events.jsonl"))
+        self.ckpt = CheckpointManager(config.checkpoint_dir)
+        self.current_epoch = 0
+        self.current_iteration = 0
+        self.best_valid_loss = float("inf")
+
+        if config.mode in ("test", "validate", "eval_model", "debug"):
+            self.load_checkpoint("model_best", missing_ok=True)
+        elif tc.resume_training:
+            self.load_checkpoint(tc.checkpoint_file, missing_ok=True)
+        self.model_size_estimation()
+
+    def upload(self, batch: np.ndarray) -> torch.Tensor:
+        """A host float32 batch -> a tensor on the trainer's device."""
+        t = torch.from_numpy(batch)
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    # --- checkpointing -----------------------------------------------------
+    def save_checkpoint(self, name: str = "checkpoint",
+                        is_best: bool = False) -> None:
+        meta = {
+            "epoch": self.current_epoch,
+            "iteration": self.current_iteration,
+            "best_valid_loss": self.best_valid_loss,
+            "scheduler": self.scheduler.state_dict(),
+            "train_logger": self.train_logger.state_dict(),
+            "trnit_logger": self.trnit_logger.state_dict(),
+            "valid_logger": self.valid_logger.state_dict(),
+        }
+        # one optimiser step per iteration: the step count is the
+        # iteration, as the JAX package's TrainState.step
+        state = {"model": self.model.state_dict(),
+                 "optimizer": self.optimizer.state_dict(),
+                 "step": self.current_iteration}
+        self.ckpt.save(name, state, meta, is_best=is_best)
+
+    def load_checkpoint(self, name: str, missing_ok: bool = False) -> bool:
+        try:
+            state, meta = self.ckpt.load(name)
+        except FileNotFoundError:
+            if missing_ok:
+                self.logger.info(
+                    "!!! No checkpoint '%s'; continuing with fresh params",
+                    name)
+                return False
+            raise
+        self.model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.current_epoch = meta.get("epoch", 0)
+        self.current_iteration = meta.get("iteration", 0)
+        self.best_valid_loss = meta.get("best_valid_loss", float("inf"))
+        if "scheduler" in meta:
+            self.scheduler.load_state_dict(meta["scheduler"])
+            set_learning_rate(self.optimizer, self.scheduler.lr)
+        for key, lg in (("train_logger", self.train_logger),
+                        ("trnit_logger", self.trnit_logger),
+                        ("valid_logger", self.valid_logger)):
+            if key in meta:
+                lg.load_state_dict(meta[key])
+        self.logger.info("Checkpoint '%s' loaded (epoch %d, iter %d)",
+                         name, self.current_epoch, self.current_iteration)
+        return True
+
+    # --- loops -------------------------------------------------------------
+    def run(self) -> None:
+        mode = self.config.mode
+        try:
+            if mode == "debug":
+                # anomaly detection (reference agents/base.py:112-114): a
+                # backward that makes a NaN fails with a traceback into the
+                # forward op that produced it; scoped to this run
+                with torch.autograd.set_detect_anomaly(True):
+                    self.train()
+            elif mode == "train":
+                self.train()
+            elif mode == "validate":
+                self.validate()
+            elif mode == "test":
+                self.test()
+            elif mode == "model_size":
+                self.model_size_estimation(print_params=True)
+            elif mode in ("eval_model", "flops_est"):
+                raise NotImplementedError(
+                    f"mode '{mode}' is not ported yet (ROADMAP A5)")
+            else:
+                raise NameError(f"'{mode}' is not a valid mode")
+        except KeyboardInterrupt:
+            self.logger.info("CTRL+C received; finalizing")
+        except Exception as exc:
+            # crash-safety save (reference base.py:128-130) — but only if this
+            # run actually made progress, so a mode typo can't clobber a good
+            # checkpoint with fresh params
+            if self.current_iteration > 0:
+                self.save_checkpoint()
+            self.notifier.send(
+                f"[llicti] {self.config.exp_name} crashed in mode "
+                f"'{mode}'",
+                f"{type(exc).__name__}: {exc} "
+                f"(epoch {self.current_epoch}, "
+                f"iter {self.current_iteration})")
+            raise
+
+    def finalize(self) -> None:
+        if self.config.mode in ("train", "debug") and self.current_iteration > 0:
+            self.save_checkpoint()
+
+    def train(self, max_steps: Optional[int] = None) -> None:
+        tc = self.config.train
+        for epoch in range(self.current_epoch, tc.max_epoch):
+            self.current_epoch = epoch
+            self.train_one_epoch(max_steps=max_steps)
+            if (self.current_epoch + 1) % tc.validate_every == 0:
+                valid_loss = self.validate()
+                is_best = valid_loss < self.best_valid_loss
+                if is_best:
+                    self.best_valid_loss = valid_loss
+                self.save_checkpoint(is_best=is_best)
+            self.current_epoch += 1
+            if max_steps is not None and self.current_iteration >= max_steps:
+                break
+
+    def train_one_epoch(self, max_steps: Optional[int] = None) -> None:
+        tc = self.config.train
+        for batch in self.train_loader:
+            metrics = self.train_step(self.upload(batch))
+            bd = metrics["breakdown"].cpu().numpy()
+            self.train_logger(bd)
+            self.trnit_logger(bd)
+            self.current_iteration += 1
+            if (self.current_iteration + 1) % tc.loss_prnt_iters == 0:
+                self.trnit_logger.display(
+                    lr=get_learning_rate(self.optimizer), typ="it",
+                    epoch=self.current_iteration)
+                valid_loss = self.validate()
+                is_best = valid_loss < self.best_valid_loss
+                if is_best:
+                    self.best_valid_loss = valid_loss
+                self.save_checkpoint(is_best=is_best)
+            if max_steps is not None and self.current_iteration >= max_steps:
+                break
+        if self.train_logger.rates:
+            self.train_logger.display(lr=get_learning_rate(self.optimizer),
+                                      typ="tr", epoch=self.current_epoch)
+
+    def validate(self) -> float:
+        mult = 2 ** (max(self.config.model.dwtlevels) + 1)
+        for batch in self.valid_loader:
+            batch = pad_to_multiple(batch, mult)
+            _, bd = self.eval_step(self.upload(batch))
+            self.valid_logger(bd.cpu().numpy())
+        loss, _ = self.valid_logger.display(typ="va",
+                                            epoch=self.current_epoch)
+        new_lr = self.scheduler.step(loss)
+        if abs(new_lr - get_learning_rate(self.optimizer)) > 1e-12:
+            set_learning_rate(self.optimizer, new_lr)
+        return loss
+
+    def test(self) -> float:
+        """Estimate-only eval over the test set: differentiable rate per
+        image, no entropy coding (the reference's test() is an empty stub,
+        agents/llicti_agent.py:116-120)."""
+        mult = 2 ** (max(self.config.model.dwtlevels) + 1)
+        losses = []
+        for batch in self.test_loader:
+            batch = pad_to_multiple(batch, mult)
+            total, _ = self.eval_step(self.upload(batch))
+            losses.append(float(total))
+        loss = float(np.mean(losses)) if losses else float("nan")
+        self.logger.info("Test (estimate-only): mean rate %.4f bpp over "
+                         "%d images", loss, len(losses))
+        return loss
+
+    # --- introspection -----------------------------------------------------
+    def model_size_estimation(self, print_params: bool = False) -> float:
+        total = 0
+        for name, p in self.model.named_parameters():
+            if print_params:
+                self.logger.info("%s %s", name, tuple(p.shape))
+            total += p.numel() * p.element_size()
+        mb = total / 1024 ** 2
+        self.logger.info(
+            "------------------TOT----------------------------------------")
+        self.logger.info(
+            " model param+buffer=total size: %.3f+0.000=%.3fMB", mb, mb)
+        self.logger.info(
+            "------------------END----------------------------------------")
+        return mb

@@ -1,7 +1,7 @@
 """The port runs without JAX and without the JAX package: a subprocess
-that refuses every import of jax, flax, orbax and llicti_tpu imports
-llicti_torch and runs a CPU round trip, and no module of the port (nor
-chip_smoke.py) imports any of them."""
+that refuses every import of jax, flax, optax, orbax and llicti_tpu
+imports llicti_torch, runs a CPU round trip and a training step, and no
+module of the port (nor chip_smoke.py) imports any of them."""
 import ast
 import os
 import subprocess
@@ -11,7 +11,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-BLOCKED = ("jax", "jaxlib", "flax", "orbax")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax")
 # modules of the JAX package the port may use: none, not even JAX-free ones
 ALLOWED_TPU = ()
 
@@ -54,6 +54,22 @@ codec = Codec(cfg, params, num_lanes=16, device="cpu")
 img = np.random.default_rng(0).integers(0, 256, (21, 18, 3), dtype=np.uint8)
 out = codec.decompress(codec.compress(img))
 assert np.array_equal(out[0], img)
+
+from llicti_torch.config import config_from_json
+from llicti_torch.data import TrainLoader, ImageDataset
+from llicti_torch.ops.factorized import FactorizedPrior
+from llicti_torch.training import make_optimizer, make_train_step
+from llicti_torch.training.trainer import Trainer
+from llicti_torch.utils import CheckpointManager, Notifier, RateLogger
+from llicti_torch.weights import params_from_flax
+assert config_from_json("configs/small_b.json").train.batch_size == 64
+model = params_from_flax(params, cfg)
+batch = next(iter(TrainLoader(ImageDataset(synthetic_len=4,
+                                           synthetic_size=32), 2, 32)))
+m = make_train_step(model, make_optimizer(model, 1e-3))(
+    torch.from_numpy(batch))
+assert np.isfinite(float(m["loss"]))
+assert float(FactorizedPrior(2).loss()) > 0
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 print("OK")
 """

@@ -5,6 +5,7 @@ Usage: python3 tools/profile_torch_codec.py [--tree DIR] [--runs 15]
                                             [--no-profile] [--batch K]
                                             [--two-stage] [--stages]
                                             [--host-backend] [--rate]
+       python3 tools/profile_torch_codec.py --train [--tree DIR] [--runs 15]
 
 Imports ``llicti_torch`` from ``DIR`` (default: this repository; give an
 unpacked older tree to compare two versions in one run) and round-trips
@@ -30,11 +31,20 @@ backend and the rate forward also give, with ``--host-backend``, the
 encode and decode times of a ``backend="host"`` codec and a profile of
 each direction, and with ``--rate``, the times of the flagship's rate
 forward (``LLICTIModel.forward`` under ``exact_math``) and its profile.
-The last line is the card's name and power limit.
+``--train`` (trees with ``llicti_torch.training``) instead profiles the
+flagship's training: one optimiser step of ``configs/paper_a.json`` (2
+microbatches of 32 synthetic 160x160 patches, random weights from seed
+1337, Adam at 1e-4) timed over ``--runs`` steps with PyTorch's default
+flags and under ``exact_math``; the step split on the device timeline by
+CUDA events into upload, forward, backward and optimiser; and a profile
+of one step (busy time, idle share, kernel groups, the costliest kernels,
+cuDNN's ``genericTranspose_kernel``).  The profile of every mode names
+the transposes.  The last line is the card's name and power limit.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import os
 import statistics
@@ -106,7 +116,7 @@ def encode_kernel_ms(codec, img, iters: int = 20):
     return t0.elapsed_time(t1) / iters, (fn.launches - launches) // iters
 
 
-def profile(fn, label: str) -> None:
+def profile(fn, label: str, top: int = 3) -> None:
     from torch.profiler import ProfilerActivity, profile as prof_ctx
     torch.cuda.synchronize()
     with prof_ctx(activities=[ProfilerActivity.CPU,
@@ -139,9 +149,13 @@ def profile(fn, label: str) -> None:
           f"idle share {1 - busy / wall:.3f}")
     for key, (ms, count) in groups.items():
         print(f"profile {label}: {key}: {ms:.3f} ms, {count} kernels")
-    top = sorted(other.items(), key=lambda kv: -kv[1][0])[:3]
-    for name, (ms, count) in top:
+    for name, (ms, count) in sorted(other.items(),
+                                    key=lambda kv: -kv[1][0])[:top]:
         print(f"profile {label}: other: {ms:.3f} ms in {count} x {name[:70]}")
+    tr = [v for name, v in other.items() if "genericTranspose" in name]
+    print(f"profile {label}: cuDNN genericTranspose_kernel: "
+          f"{sum(v[0] for v in tr):.3f} ms in {sum(v[1] for v in tr)} "
+          "kernels")
 
 
 def medians(label: str, xs, per: int = 1) -> None:
@@ -275,6 +289,74 @@ def rate(codec, img, args) -> None:
         profile(forward, "rate forward")
 
 
+def train(args) -> None:
+    """The flagship's optimiser step: times, a split by phase, a
+    profile."""
+    from llicti_torch import ModelConfig
+    from llicti_torch.codec import exact_math
+    from llicti_torch.data import ImageDataset, TrainLoader
+    from llicti_torch.training import (apply_gradients, make_optimizer,
+                                       make_train_step)
+    from llicti_torch.training.loss import rate_loss_list
+    from llicti_torch.weights import init_params, params_from_flax
+
+    cfg = ModelConfig()
+    ds = ImageDataset(synthetic_len=64, synthetic_size=160, seed=1337)
+    batch = next(iter(TrainLoader(ds, 32, 160, grad_acc=2, seed=1337)))
+    host = torch.from_numpy(batch).pin_memory()
+    model = params_from_flax(init_params(cfg, 1337), cfg).cuda()
+    opt = make_optimizer(model, 1e-4)
+    step = make_train_step(model, opt)
+
+    def full():
+        return step(host.to("cuda", non_blocking=True))
+
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def split():
+        """make_train_step's phases with an event between each."""
+        marks = [event()]
+        x = host.to("cuda", non_blocking=True)
+        marks.append(event())
+        opt.zero_grad(set_to_none=True)
+        fwd = []
+        for xb in x:
+            a = event()
+            total, _ = rate_loss_list(xb.numel(), model(xb))
+            b = event()
+            total.backward()
+            fwd.append((a, b, event()))
+        for p in model.parameters():
+            p.grad.div_(x.shape[0])
+        apply_gradients(opt, 5.0)
+        marks.append(event())
+        torch.cuda.synchronize()
+        return (marks[0].elapsed_time(marks[1]),
+                sum(a.elapsed_time(b) for a, b, _ in fwd),
+                sum(b.elapsed_time(c) for _, b, c in fwd),
+                fwd[-1][2].elapsed_time(marks[2]))
+
+    for label, ctx in (("default flags", contextlib.nullcontext),
+                       ("exact_math", exact_math)):
+        with ctx():
+            full()
+            torch.cuda.reset_peak_memory_stats()
+            medians(f"train step ({label})",
+                    [timed(full)[1] for _ in range(args.runs)])
+            parts = [split() for _ in range(5)]
+        print(f"train step ({label}) peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB; "
+              "device-timeline medians of 5 split steps: " + ", ".join(
+                  f"{name} {statistics.median(p[i] for p in parts):.2f} ms"
+                  for i, name in enumerate(("upload", "forward", "backward",
+                                            "optimiser"))))
+    if not args.no_profile:
+        profile(full, "train step (default flags)", top=8)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(
@@ -286,10 +368,15 @@ def main() -> None:
     ap.add_argument("--stages", action="store_true")
     ap.add_argument("--host-backend", action="store_true")
     ap.add_argument("--rate", action="store_true")
+    ap.add_argument("--train", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_codec: CUDA is not available")
     sys.path.insert(0, os.path.abspath(args.tree))
+    if args.train:
+        train(args)
+        print(card_line())
+        return
     from llicti_torch import Codec, ModelConfig, load_npz, synthetic_image
 
     codec = Codec(ModelConfig(), load_npz(), device="cuda", num_lanes=1024)
@@ -328,9 +415,13 @@ def main() -> None:
         host_backend(img, args)
     if args.rate:
         rate(codec, img, args)
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip())
+    print(card_line())
+
+
+def card_line() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
 
 
 if __name__ == "__main__":
