@@ -93,11 +93,28 @@ Phases, each of which raises on failure:
      ms from a step's end to the next's; (c) ms an optimiser step (batch
      2 x 32 of 160^2) under PyTorch's default flags and under exact_math,
      patches a second, peak memory, and the loader's ms a batch on its
-     own, beside the card's name and power limit.
+     own, beside the card's name and power limit;
+  12. the rest of the port, each part with the launch counts set to 0
+     just before it and read just after: (a) Kernels 2 and 3 above 1024
+     lanes, at N = 2048, 4096, 5000 and 16384 on the finest Y slice and the
+     45-slice chain, bit-identical to the plain versions and timed with
+     their bounds beside N = 1024's; edge tables and chains at N = 1025 and
+     16384; flagship round trips at N = 2048 and 4096, byte-exact, with
+     the wide variants' launch counts; (b) the float-CDF path
+     (Codec(use_kernel_cdf=False), the JAX package's default): 512x768 and
+     310x598 byte-exact with no Kernel 1 launch and 45 / 2 of Kernels 2 /
+     3, num_bytes within max(0.1 %, 16 B) of JAX's 861,767, ms beside
+     Kernel 1's; (c) the CLI's encode and decode on the card (PNG, or .npy
+     without PIL): the decoded file equals the input, the blob the codec's;
+     (d) the Trainer's eval_model over three images (the trained weights
+     from a port .pt) and the eval protocol over a temporary corpus of 2
+     valid + 2 test images: lossless, JAX's keys, rate from the bytes,
+     coder gaps within +-1 %; (e) flops_est on the card equal to the CPU's.
 The line before the last is {"kernels": [...]}: Kernel 2's and Kernel 3's
 rows also carry the batch figures (batch_k, batch_ms, batch_plain_ms,
-batch_bound_ms, batch_launches); the last line is {"ok": true, "device":
-{...}}.
+batch_bound_ms, batch_launches); rans_decode_wide and rans_encode_wide are
+Kernels 2 and 3 above 1024 lanes (N = 2048's figures, each N's under
+"lanes"); the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -114,13 +131,14 @@ import time
 import numpy as np
 import torch
 
-from llicti_torch import (Codec, ModelConfig, _kernels, load_npz,
-                          synthetic_image)
+from llicti_torch import (Codec, ModelConfig, _kernels, cli, eval_protocol,
+                          load_npz, synthetic_image)
 from llicti_torch import codec as cmod
 from llicti_torch.codec import exact_math
 from llicti_torch.coder import rans
-from llicti_torch.config import config_from_json, replace
-from llicti_torch.data import ImageDataset, TrainLoader
+from llicti_torch.config import (DataConfig, LLICTIConfig, TrainConfig,
+                                 config_from_json, replace)
+from llicti_torch.data import ImageDataset, TrainLoader, load_rgb
 from llicti_torch.ops import cdf
 from llicti_torch.ops.color import rgb_int_to_ycocg_r_int
 from llicti_torch.ops.bounds import lower_bound
@@ -128,7 +146,8 @@ from llicti_torch.ops.gmm import SCALE_BOUND_NORMAL, cdf_sampling_points
 from llicti_torch.ops.wavelet import lazy_dwt
 from llicti_torch.training import Trainer, make_optimizer, make_train_step
 from llicti_torch.training.loss import rate_loss_list
-from llicti_torch.weights import init_params, params_from_flax
+from llicti_torch.utils import CheckpointManager
+from llicti_torch.weights import BENCH_PARAMS, init_params, params_from_flax
 
 # (label, ModelConfig knobs, trained weights?, also 310x598?)
 VARIANTS = [
@@ -498,15 +517,15 @@ def chain_phase(codec, img):
     return (err, ms, plain_ms) + bnd, steps
 
 
-def encode_edge_phase(dev):
+def encode_edge_phase(dev, lanes=(1, 33, 1000, 1024)):
     """Kernel 3 against rans_encode_chain_plain on chains of mixed slice
     sizes (n = 0, n < N, n not a multiple of N, all-masked slices, masked
-    padding) at N = 1, 33, 1000, 1024; freq 1 and freq near 2^16 (tables
+    padding) at N = ``lanes``; freq 1 and freq near 2^16 (tables
     of P = 4 with unit rows, P = 2), carried states at 2^16 and 2^32 - 1.
     Each chain round-trips through Kernel 2.  Returns the chain count."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(11)
-    for N in (1, 33, 1000, 1024):
+    for N in lanes:
         # (symbols, masked entries after them) per slice, decode order
         sizes = [(0, 0), (1, 0), (N - 1, 0), (3 * N + 7, 0), (N, 0),
                  (0, N + 3), (2 * N + N // 2, 5), (5, 2 * N)]
@@ -557,7 +576,7 @@ def encode_edge_phase(dev):
               f"order {sizes} -> {total} words, cursors in encode order "
               f"{cursors.tolist()}; identical to the plain version; Kernel 2 "
               "decodes every symbol back to the carried states")
-    return 4
+    return len(lanes)
 
 
 def synthetic_tables(gen, n: int, P: int, dev):
@@ -582,13 +601,13 @@ def synthetic_tables(gen, n: int, P: int, dev):
     return cum.int().contiguous()
 
 
-def decode_edge_phase(dev):
-    """Kernel 2 against rans_decode_plain on synthetic tables; returns the
-    number of cases (every one bit-identical)."""
+def decode_edge_phase(dev, lanes=(1000, 1024)):
+    """Kernel 2 against rans_decode_plain on synthetic tables at N =
+    ``lanes``; returns the number of cases (every one bit-identical)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
     cases = 0
-    for N in (1000, 1024):
+    for N in lanes:
         for P in (2, 31, 32, 33, 97, 257, 513):
             n = 5 * N + 37
             cum = synthetic_tables(gen, n, P, dev)
@@ -1567,6 +1586,342 @@ def train_phase(counters) -> None:
     print(f"train (c): {time.perf_counter() - t0:.2f} s")
 
 
+# ---- phase 12: lanes above 1024, the float-CDF path, the CLI and eval ----
+
+LANES = (2048, 4096, 5000, 16384)  # Kernels 2 and 3 against plain at these
+EVAL_SUMMARY_KEYS = {  # tools/eval_protocol.py's flush() summary
+    "checkpoint", "devices", "n_images", "all_lossless", "max_abs_gap_pct",
+    "max_abs_coder_gap_pct", "max_abs_gap_pct_exact_mult", "n_exact_mult",
+    "mean_bpsp", "mean_bpsp_by_split", "per_image"}
+RESULTS_KEYS = {"rate", "est_rate", "dist", "lossless", "per_image"}
+
+
+def reset_wide() -> None:
+    rans.rans_decode.wide_launches = 0
+    rans.rans_encode_chain.wide_launches = 0
+
+
+def read_wide():
+    return {"rans_decode_wide": rans.rans_decode.wide_launches,
+            "rans_encode_wide": rans.rans_encode_chain.wide_launches}
+
+
+def finest_y(codec, img):
+    """The finest band's Y slice of ``img`` as the codec codes it: (int32
+    table [n, P], start, freq [n])."""
+    cfg, dev = codec.cfg, codec.device
+    minmax, _ = cmod.host_header(img[None], cfg.dwtlevels)
+    ranges = [cmod.clr_range(clr, minmax) for clr in range(3)]
+    x = torch.from_numpy(img[None].copy()).to(dev)
+    y0 = lazy_dwt(codec._to_y(rgb_int_to_ycocg_r_int(x)), cfg.dwtlevels,
+                  pad=True)[0][0]
+    n = y0.shape[1] * y0.shape[2]
+    with torch.inference_mode(), exact_math():
+        pm = codec.model.band_params(y0[..., :3].contiguous(), 0, 0)
+        return codec._tables(0, 0, pm[0].reshape(n, -1).contiguous(),
+                             y0[0].reshape(n, -1).contiguous(), ranges,
+                             codec._pts3(ranges))
+
+
+def lanes_kernels(codec, img, kres):
+    """Kernel 3 on the 45-slice chain and Kernel 2 on the finest Y slice at
+    each N of LANES, against the plain versions (bit-identical), timed
+    beside N = 1024's (phase 3).  -> {N: {"decode": row, "encode": row}},
+    a row (max |d|, ms, plain ms, bound ms, bound_by)."""
+    dev = codec.device
+    cum, st0, fr0 = finest_y(codec, img)
+    n, P = cum.shape
+    starts, freqs, offsets, sizes, _ = chain_inputs(codec, img)
+    starts, freqs = starts[0], freqs[0]
+    searched = math.ceil(math.log2(P + 1))
+    out = {}
+    for N in LANES:
+        cap = starts.numel() + N  # a symbol emits at most one word
+        (cursors, _, cursor, _), eerr = chain_outputs(
+            starts, freqs, offsets, fresh_carry(N, cap, dev))
+        check(eerr == 0, f"Kernel 3 at N={N} != rans_encode_chain_plain")
+        total = int(cursor[0])
+        check(int(cursors[-1]) == total, f"N={N}: chain cursors")
+
+        def chain(fn):
+            return lambda s, c, b: fn(starts, freqs, offsets, s, c, b)
+
+        carry = lambda _: fresh_carry(N, cap, dev)  # noqa: E731
+        ems = cuda_ms(chain(rans.rans_encode_chain), 20, carry)
+        eplain = cuda_ms(chain(rans.rans_encode_chain_plain), 1, carry)
+        steps = sum(-(-m // N) for m in sizes)
+        ebnd = bound(8 * starts.numel() + 4 * total + 16 * N, 0)
+
+        s, c, b = fresh_carry(N, n + N, dev)
+        rans.rans_encode(st0, fr0, s, c, b)
+        words0 = int(c[0])
+        sn, wn = rans.unpack_stream(rans.pack_stream_packed(
+            b[:words0].cpu().numpy(), s.cpu().numpy()), N)
+        words = torch.from_numpy(wn).to(dev)
+
+        def fresh(_):
+            return (torch.from_numpy(sn.astype(np.int64)).to(dev),
+                    torch.zeros((1,), dtype=torch.int32, device=dev))
+
+        outs = []
+        for fn in (rans.rans_decode, rans.rans_decode_plain):
+            sx, o = fresh(0)
+            outs.append((fn(cum, words, sx, o), sx, o))
+        torch.cuda.synchronize()
+        derr = max(max_abs(a, b) for a, b in zip(*outs))
+        check(derr == 0, f"Kernel 2 at N={N} != rans_decode_plain")
+        sym = outs[0][0].long()[:, None]
+        check(torch.equal(cum.gather(1, sym)[:, 0], st0)
+              and int(outs[0][2][0]) == words0,
+              f"N={N}: the decode did not return the encoded symbols")
+        dms = cuda_ms(lambda sx, o: rans.rans_decode(cum, words, sx, o), 20,
+                      fresh)
+        dplain = cuda_ms(lambda sx, o: rans.rans_decode_plain(cum, words, sx,
+                                                              o), 2, fresh)
+        dbnd = bound(4 * n * (searched + 1) + 4 * words0 + 16 * N, 0)
+        out[N] = {"decode": (derr, dms, dplain) + dbnd,
+                  "encode": (eerr, ems, eplain) + ebnd}
+        dsteps = -(-n // N)
+        clusters = rans.decode_max_clusters(N)
+        check(clusters > 0, f"N={N}: no decode cluster fits on the card")
+        d1, e1 = kres["decode"], kres["encode"]
+        print(f"lanes N={N}: Kernel 2, Y slice P={P}: {dms:.5f} ms "
+              f"({1e3 * dms / dsteps:.3f} us a step of {dsteps}; N=1024: "
+              f"{d1[1]:.5f} ms, bound {d1[3]:.5f}), plain {dplain:.5f} ms, "
+              f"bound {dbnd[0]:.5f} ms ({dbnd[1]}), {clusters} resident "
+              f"clusters; Kernel 3, chain of {len(sizes)} slices, {steps} "
+              f"steps: {ems:.5f} ms (N=1024: {e1[1]:.5f} ms, bound "
+              f"{e1[3]:.5f}), plain {eplain:.5f} ms, bound {ebnd[0]:.5f} ms "
+              f"({ebnd[1]}); both bit-identical to the plain versions; "
+              f"{card_line()}")
+    return out
+
+
+def lanes_round_trips(cfg, params, img, counters):
+    """Flagship round trips at N = 2048 and 4096, byte-exact, with the
+    launch counts (the wide variants' too) set to 0 just before and read
+    just after.  -> the wide launches."""
+    reset_counts(counters)
+    reset_wide()
+    for N in (2048, 4096):
+        codec = Codec(cfg, params, num_lanes=N)
+        (streams, enc_ms) = timed(lambda: codec.compress(img))
+        back = Codec.deserialize(Codec.serialize(streams))
+        out, dec_ms = timed(lambda: codec.decompress(back, xorg=img))
+        check(np.array_equal(out[0], img) and codec.last_ycocg_err == 0,
+              f"N={N}: the flagship round trip is not byte-exact")
+        nb = Codec.num_bytes(streams)
+        print(f"lanes N={N}: 512x768 flagship lossless, last_ycocg_err 0, "
+              f"{nb} bytes, bpsp {nb * 8 / img.size:.4f}, encode "
+              f"{enc_ms:.2f} ms, decode {dec_ms:.2f} ms (first calls)")
+    got = dict(read_counts(counters, "round trips at N > 1024"),
+               **read_wide())
+    check(all(v > 0 for v in got.values()),
+          f"a wide variant was not launched: {got}")
+    print(f"lanes round trips: launches {got}")
+    return read_wide()
+
+
+def float_cdf_phase(cfg, params, images, k1_codec, counters):
+    """Codec(use_kernel_cdf=False), the JAX package's default float-CDF
+    path: byte-exact round trips with no Kernel 1 launch and Kernels 2 and
+    3 as usual, num_bytes against JAX's, ms beside Kernel 1's."""
+    codec = Codec(cfg, params, num_lanes=1024, use_kernel_cdf=False)
+    rows = {}
+    for label, img in images.items():
+        codec.decompress(codec.compress(img))  # warm-up
+        reset_counts(counters)
+        streams = codec.compress(img)
+        out = codec.decompress(Codec.deserialize(Codec.serialize(streams)),
+                               xorg=img)
+        got = {name: fn.launches for name, fn in counters.items()}
+        check(np.array_equal(out[0], img) and codec.last_ycocg_err == 0,
+              f"float CDF {label}: not byte-exact")
+        check(got == {"gmm_cdf_from_pmap": 0, "rans_decode": 45,
+                      "rans_encode": 2}, f"float CDF {label}: launches {got}")
+        nb = Codec.num_bytes(streams)
+        if label == "512x768":
+            tol = max(0.001 * JAX_FLAGSHIP_BYTES, 16)
+            check(abs(nb - JAX_FLAGSHIP_BYTES) <= tol,
+                  f"float CDF: num_bytes {nb} not within {tol:.0f} of the "
+                  f"JAX package's {JAX_FLAGSHIP_BYTES}")
+        torch.cuda.reset_peak_memory_stats()
+        enc = median_ms(lambda: codec.compress(img))
+        dec = median_ms(lambda: codec.decompress(streams))
+        peak = peak_mib()
+        k1_streams = k1_codec.compress(img)
+        k1_enc = median_ms(lambda: k1_codec.compress(img))
+        k1_dec = median_ms(lambda: k1_codec.decompress(k1_streams))
+        rows[label] = (enc, dec, k1_enc, k1_dec)
+        print(f"float CDF {label}: lossless, last_ycocg_err 0, {nb} bytes "
+              f"(JAX's float path on the 512x768 CPU run: "
+              f"{JAX_FLAGSHIP_BYTES}; Kernel 1's: "
+              f"{Codec.num_bytes(k1_streams)}), launches {got}; encode "
+              f"{enc:.2f} ms, decode {dec:.2f} ms (Kernel 1's {k1_enc:.2f} / "
+              f"{k1_dec:.2f}; medians of 5), peak memory {peak:.1f} MiB; "
+              f"{card_line()}")
+    return rows
+
+
+def save_image(path_stem: str, img) -> str:
+    """A PNG where PIL imports, else a uint8 .npy; -> the file."""
+    try:
+        from PIL import Image
+    except ImportError:
+        np.save(path_stem + ".npy", img)
+        return path_stem + ".npy"
+    Image.fromarray(img).save(path_stem + ".png")
+    return path_stem + ".png"
+
+
+def cli_phase(cfg, params, img, counters, root: str) -> None:
+    """The CLI's encode then decode on the card: the decoded file equals
+    the input, the blob the codec's serialize(compress(img))."""
+    inp = save_image(os.path.join(root, "cli_in"), img)
+    blob_path = os.path.join(root, "cli.llic")
+    out_path = os.path.join(root, "cli_out.png")
+    args = ["--ckpt", BENCH_PARAMS]
+    reset_counts(counters)
+    _, enc_ms = timed(lambda: cli.main(["encode", inp, blob_path] + args))
+    _, dec_ms = timed(lambda: cli.main(["decode", blob_path, out_path]
+                                       + args))
+    got = read_counts(counters, "the CLI")
+    written = out_path if inp.endswith(".png") else out_path + ".npy"
+    check(np.array_equal(load_rgb(written), img), "CLI: decoded != input")
+    with open(blob_path, "rb") as f:
+        blob = f.read()
+    check(blob == Codec.serialize(Codec(cfg, params).compress(img)),
+          "CLI: the blob is not the codec's serialize(compress(img))")
+    print(f"CLI ({os.path.splitext(inp)[1]} in, {os.path.basename(written)} "
+          f"out, 512 lanes): 512x768 {len(blob)} bytes, byte-exact; encode "
+          f"{enc_ms:.1f} ms, decode {dec_ms:.1f} ms wall (each call loads "
+          f"the weights and builds its codec); launches {got}")
+
+
+def eval_phase(cfg, params, counters, root: str) -> None:
+    """eval_model of the Trainer (trained weights from a port .pt) over a
+    test set of three images, then the eval protocol over a corpus of 2
+    valid + 2 test images: lossless, JAX's keys, rate from the bytes,
+    coder gaps within +-1 %."""
+    test_dir = os.path.join(root, "test_set")
+    os.makedirs(test_dir)
+    images = [synthetic_image(512, 768, seed=42),
+              synthetic_image(310, 598, seed=7),
+              synthetic_image(384, 512, seed=3)]
+    for k, im in enumerate(images):
+        save_image(os.path.join(test_dir, f"im{k}"), im)
+    lcfg = LLICTIConfig(exp_name="eval", mode="eval_model", model=cfg,
+                        train=TrainConfig(),
+                        data=DataConfig(train_dirs=(test_dir,),
+                                        valid_dir=test_dir,
+                                        test_dir=test_dir),
+                        experiments_root=root)
+    model = params_from_flax(params, cfg)
+    CheckpointManager(lcfg.checkpoint_dir).save("model_best", {
+        "model": model.state_dict(),
+        "optimizer": make_optimizer(model, TRAIN_LR).state_dict(),
+        "step": 0}, {})
+    reset_counts(counters)
+    tr = Trainer(lcfg)
+    check(tr.device.type == "cuda", "Trainer did not default to the card")
+    _, wall = timed(tr.run)
+    got = read_counts(counters, "eval_model")
+    with open(os.path.join(lcfg.out_dir, "results.json")) as f:
+        res = json.load(f)
+    check(set(res) == RESULTS_KEYS, f"results.json keys {sorted(res)}")
+    per = res["per_image"]
+    check(res["lossless"] and len(per) == 3 and all(r["ok"] for r in per),
+          "eval_model: an image is not lossless")
+    codec = Codec(cfg, params, num_lanes=512)
+    rate = float(np.mean([Codec.num_bytes(codec.compress(im)) * 8 / im.size
+                          for im in images]))
+    check(abs(res["rate"] - rate) <= 1e-12 * rate,
+          f"eval_model: rate {res['rate']} != bytes x 8 / pixels {rate}")
+    check(all(abs(r["coder_gap_pct"]) <= 1.0 for r in per),
+          "eval_model: a coder gap is beyond +-1 %")
+    rows = [(round(r["bpsp"], 4), round(r["est_gap_pct"], 2),
+             round(r["coder_gap_pct"], 3), round(r["enc_t"], 4),
+             round(r["dec_t"], 4)) for r in per]
+    print(f"eval_model (3 images, 512 lanes, trained weights from a port "
+          f".pt): rate {res['rate']:.4f}, est_rate {res['est_rate']:.4f}, "
+          f"lossless; per image (bpsp, est gap %, coder gap %, enc / dec "
+          f"s): {rows}; run {wall / 1e3:.2f} s; launches {got}; "
+          f"{card_line()}")
+
+    corpus = os.path.join(root, "corpus")
+    for split, specs in (("valid", [(512, 512, 1), (384, 640, 2)]),
+                         ("test", [(310, 598, 7), (512, 768, 42)])):
+        os.makedirs(os.path.join(corpus, split))
+        for k, (h, w, seed) in enumerate(specs):
+            save_image(os.path.join(corpus, split, f"{split}{k}"),
+                       synthetic_image(h, w, seed=seed))
+    for var in ("SKIP", "ONLY", "APPEND", "BUCKET", "BUCKET_SIZE",
+                "PLATFORM"):
+        os.environ.pop(f"LLICTI_EVAL_{var}", None)
+    reset_counts(counters)
+    summary, wall = timed(lambda: eval_protocol.main(
+        os.path.join(root, "eval_out"), root=corpus))
+    got = read_counts(counters, "the eval protocol")
+    per = summary["per_image"]
+    check(set(summary) == EVAL_SUMMARY_KEYS,
+          f"eval protocol summary keys {sorted(summary)}")
+    check(summary["all_lossless"] and summary["n_images"] == 6
+          and not any(r.get("crashed") for r in per),
+          "eval protocol: an image crashed or is not lossless")
+    check(summary["max_abs_coder_gap_pct"] <= 1.0,
+          "eval protocol: a coder gap is beyond +-1 %")
+    head = {k: v for k, v in summary.items() if k != "per_image"}
+    times = [(r["split"], r["h"], r["w"], r["enc_t"], r["dec_t"])
+             for r in per]
+    print(f"eval protocol (1024 lanes, Kernel 1): {json.dumps(head)}; warm "
+          f"enc / dec s per image {times}; run {wall / 1e3:.2f} s; "
+          f"launches {got}; {card_line()}")
+
+
+def flops_phase(cfg, root: str) -> None:
+    """flops_est on the card equals the CPU's count."""
+    lcfg = LLICTIConfig(exp_name="flops", mode="flops_est", model=cfg,
+                        train=TrainConfig(),
+                        data=DataConfig(synthetic=True, synthetic_len=4),
+                        experiments_root=root)
+    tr = Trainer(lcfg)
+    tr.run()
+    flops, ms = timed(tr.flops_estimation)
+    cpu = Trainer(lcfg, device="cpu").flops_estimation()
+    check(flops == cpu > 0, f"flops: card {flops} != CPU {cpu}")
+    print(f"flops_est (3x512x512): {flops} flops on the card and the CPU "
+          f"({flops / 2e9:.2f} GMac), {ms:.1f} ms on the card")
+
+
+def port_phase(cfg, params, img, odd, codec, kres, counters):
+    """Phase 12; -> (lanes rows, wide launches)."""
+    t0 = time.perf_counter()
+    rows = lanes_kernels(codec, img, kres)
+    print(f"kernel2 edge cases above 1024 lanes: "
+          f"{decode_edge_phase(codec.device, (1025, 16384))} tables "
+          "bit-identical")
+    print(f"kernel3 edge cases above 1024 lanes: "
+          f"{encode_edge_phase(codec.device, (1025, 16384))} chains "
+          "bit-identical and round-tripped")
+    wide = lanes_round_trips(cfg, params, img, counters)
+    print(f"phase 12 (a) lanes: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    float_cdf_phase(cfg, params, {"512x768": img, "310x598": odd}, codec,
+                    counters)
+    print(f"phase 12 (b) float CDF: {time.perf_counter() - t0:.2f} s")
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        cli_phase(cfg, params, img, counters, root)
+        print(f"phase 12 (c) CLI: {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        eval_phase(cfg, params, counters, root)
+        print(f"phase 12 (d) eval: {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        flops_phase(cfg, root)
+        print(f"phase 12 (e) flops: {time.perf_counter() - t0:.2f} s")
+    return rows, wide
+
+
 def build_phase():
     """Build the kernels; print and check ptxas's report, Kernel 1's
     occupancy and the saturation shortcuts."""
@@ -1669,6 +2024,10 @@ def main() -> None:
     t0 = time.perf_counter()
     train_phase(dict(counters, gmm_cdf_table_int32=cdf.gmm_cdf_table_int32))
     print(f"training phase: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    lanes, wide = port_phase(cfg, params, img, odd, codec, kres, counters)
+    print(f"phase 12 (lanes, float CDF, CLI, eval, flops): "
+          f"{time.perf_counter() - t0:.2f} s")
     check("jax" not in sys.modules, "jax was imported")
     check(not any(m.startswith("llicti_tpu") for m in sys.modules),
           "the JAX package was imported")
@@ -1703,6 +2062,22 @@ def main() -> None:
                                     + batch["decode"]["gmm_cdf_from_pmap"])
     kernels[3].update(dec_row, batch_launches=batch["decode"]["rans_decode"])
     kernels[4].update(enc_row, batch_launches=batch["encode"]["rans_encode"])
+    # the N > 1024 variants: N = 2048's figures, each N's beside them;
+    # launches over phase 12's round trips at N = 2048 and 4096
+    for name, key, rep in (("rans_decode_wide", "decode",
+                            "llicti_tpu/coder/rans_device.py:231"),
+                           ("rans_encode_wide", "encode",
+                            "llicti_tpu/coder/rans_device.py:142")):
+        r = lanes[2048][key]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "llicti_torch/csrc/rans.cu", "replaces": rep,
+            "launches": wide[name],
+            "max_abs_err": max(lanes[N][key][0] for N in LANES), "ms": r[1],
+            "plain_ms": r[2], "bound_ms": r[3], "bound_by": r[4],
+            "library_ms": None, "lanes": {
+                str(N): {"ms": lanes[N][key][1], "plain_ms": lanes[N][key][2],
+                         "bound_ms": lanes[N][key][3]} for N in LANES}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,8 +12,11 @@ on the bands decoded so far and hands each colour's parameter rows to the
 pass's coder, writing back what a decoder returns.
 
 ``backend="device"`` (the default): per colour the quantised CDF table of
-all K images' pixels (Kernel 1), then either the encoder's (start, freq)
-or the rANS decode of the band of all K images in one launch (Kernel 2).
+all K images' pixels (Kernel 1; with ``use_kernel_cdf=False`` the float
+mixture CDF in plain PyTorch, quantised to int32, the JAX package's
+``use_pallas_cdf=False`` path and its default), then either the encoder's
+(start, freq) or the rANS decode of the band of all K images in one launch
+(Kernel 2).
 The encoder encodes all 45 slices, in reverse decode order, into one
 stream per image with one chain call of the rANS encoder (Kernel 3) for
 the K images.  ``backend="host"``: the reference-parity range coder
@@ -72,14 +75,15 @@ import numpy as np
 import torch
 
 from .coder import range_coder
-from .coder.rans import (RANS_L, pack_stream_packed, rans_decode,
+from .coder.rans import (MAX_LANES, RANS_L, pack_stream_packed, rans_decode,
                          rans_encode_chain, unpack_stream)
 from .config import ModelConfig
 from .models.interpolator import seq_colours
 from .ops.cdf import gmm_cdf_from_pmap
 from .ops.color import (rgb_int_to_ycocg_r_int, rgb_int_to_ycocg_r_int_np,
                         ycocg_r_int_to_rgb_int)
-from .ops.gmm import cdf_float_to_uint16, cdf_sampling_points, gmm_cdf_table
+from .ops.gmm import (cdf_float_to_cum_int32, cdf_float_to_uint16,
+                      cdf_sampling_points, cum_start_freq, gmm_cdf_table)
 from .ops.wavelet import (band_coded_shape, interleave_scale, lazy_dwt,
                           pad_decoded_band, unpack_pad_flags)
 from .weights import params_from_flax
@@ -471,8 +475,12 @@ class Codec:
     :func:`llicti_torch.weights.init_params` give them).
     ``device`` is the CUDA card unless the caller asks for ``"cpu"``;
     without a card, a CUDA codec raises rather than falling back.
-    ``num_lanes`` (<= 1024) is an encoder/decoder-matched parameter: the
-    container does not record it.  ``size_bucket`` (a multiple of the
+    ``num_lanes`` (1..16384) is an encoder/decoder-matched parameter: the
+    container does not record it, nor ``use_kernel_cdf`` (True: the CDF
+    tables from Kernel 1; False: the float mixture CDF of the host
+    backend's tables in plain PyTorch on the device, quantised to int32 as
+    the JAX package's default ``use_pallas_cdf=False`` does, with no
+    Kernel 1 launch).  ``size_bucket`` (a multiple of the
     coarsest stride, 0 for off) replicate-pads every image to bucket
     multiples, so a ragged set of images is coded at a few padded shapes
     (``compiled_shapes``, the JAX package's name); the decoder crops back.
@@ -505,7 +513,7 @@ class Codec:
     def __init__(self, cfg: ModelConfig, params, device="cuda",
                  num_lanes: int = 512, size_bucket: int = 0,
                  two_stage: bool = False, backend: str = "device",
-                 num_threads: int = 8):
+                 num_threads: int = 8, use_kernel_cdf: bool = True):
         refused = [why for bad, why in (
             (cfg.clrchs != 3, "clrchs < 3"),
             (cfg.clr_joint_mode not in (0, 1, 2),
@@ -527,8 +535,10 @@ class Codec:
             raise ValueError("two_stage splits the device backend's decode")
         if num_threads < 1:
             raise ValueError(f"num_threads={num_threads}: must be >= 1")
-        if not 1 <= num_lanes <= 1024:
-            raise ValueError(f"num_lanes={num_lanes}: must be in 1..1024")
+        if not 1 <= num_lanes <= MAX_LANES:
+            raise ValueError(f"num_lanes={num_lanes}: must be in "
+                             f"1..{MAX_LANES} (the port's limit; the JAX "
+                             "package takes any N)")
         stride = 2 ** (max(cfg.dwtlevels) + 1)
         if size_bucket < 0 or size_bucket % stride:
             raise ValueError(f"size_bucket={size_bucket}: must be a "
@@ -545,6 +555,7 @@ class Codec:
         if self.device.type == "cpu":
             _settle_cpu_math()
         self.backend = backend
+        self.use_kernel_cdf = use_kernel_cdf
         self.num_threads = num_threads
         self.N = num_lanes
         self.size_bucket = size_bucket
@@ -640,13 +651,28 @@ class Codec:
                 y_lev[..., sym_channel(cfg, b, clr)] = pad_decoded_band(
                     v, b, padH, padW)[..., 0]
 
-    def _kernel1(self, b, clr, pm, y2, ranges, pts3):
-        """Kernel 1 on one colour's rows: (int32 CDF table [K*n, P],
-        start, freq [K*n] at the pixels' symbols)."""
-        M, std0, mean0, w0, upd = pmap_cdf_spec(self.cfg, b, clr)
-        return gmm_cdf_from_pmap(
-            pts3[clr], pm, y2, M, std0, mean0, w0, upd, self.logistic,
-            sym_channel(self.cfg, b, clr), ranges[clr][0])
+    def _cdf_float(self, pm, y2, pts, b: int, clr: int) -> torch.Tensor:
+        """One colour's float mixture CDF ``[n, P]`` at ``pts``, from its
+        mixture parameters (cross-colour mean updates from ``y2``); shared
+        by both directions on the same shapes."""
+        stdevs, means, weights = gmm_slice_params(self.cfg, pm, y2, b, clr)
+        return gmm_cdf_table(pts, stdevs, means, weights,
+                             logistic=self.logistic)
+
+    def _tables(self, b, clr, pm, y2, ranges, pts3):
+        """One colour's int32 CDF table [K*n, P] and the encoder's (start,
+        freq) [K*n] at the pixels' symbols: Kernel 1, or with
+        ``use_kernel_cdf=False`` the float mixture CDF quantised in plain
+        PyTorch."""
+        sch = sym_channel(self.cfg, b, clr)
+        if self.use_kernel_cdf:
+            M, std0, mean0, w0, upd = pmap_cdf_spec(self.cfg, b, clr)
+            return gmm_cdf_from_pmap(
+                pts3[clr], pm, y2, M, std0, mean0, w0, upd, self.logistic,
+                sch, ranges[clr][0])
+        cum = cdf_float_to_cum_int32(self._cdf_float(pm, y2, pts3[clr], b,
+                                                     clr))
+        return (cum,) + cum_start_freq(cum, y2[:, sch], ranges[clr][0])
 
     def _front(self, rgb_dev: torch.Tensor) -> List[torch.Tensor]:
         """uint8 RGB [K, H, W, 3] on the device -> the encoder's per-scale
@@ -713,7 +739,7 @@ class Codec:
         sf = []
 
         def code(b, clr, pm, y2):
-            _, start, freq = self._kernel1(b, clr, pm, y2, st.ranges, pts3)
+            _, start, freq = self._tables(b, clr, pm, y2, st.ranges, pts3)
             sf.append((start.view(K, -1), freq.view(K, -1)))
 
         for scl in range(self.cfg.num_scales - 1, -1, -1):
@@ -881,12 +907,8 @@ class Codec:
     # ---- host backend ----------------------------------------------------
     def _cdf_u16(self, pm, y2, pts, b: int, clr: int) -> torch.Tensor:
         """One colour's uint16 CDF table ``[n, P]`` of the host range
-        coder: its mixture parameters (cross-colour mean updates from
-        ``y2``), the float mixture CDF at ``pts`` and its quantisation;
-        shared by both directions on the same shapes."""
-        stdevs, means, weights = gmm_slice_params(self.cfg, pm, y2, b, clr)
-        return cdf_float_to_uint16(gmm_cdf_table(
-            pts, stdevs, means, weights, logistic=self.logistic))
+        coder."""
+        return cdf_float_to_uint16(self._cdf_float(pm, y2, pts, b, clr))
 
     @staticmethod
     def _gather_lohi(cdfu: torch.Tensor, y: torch.Tensor, minv: int):
@@ -1050,7 +1072,7 @@ class Codec:
                     d.tail_ready)
 
             def code(b, clr, pm, y2):
-                cum, _, _ = self._kernel1(b, clr, pm, y2, ranges, pts3)
+                cum, _, _ = self._tables(b, clr, pm, y2, ranges, pts3)
                 syms = rans_decode(cum.view(K, -1, cum.shape[-1]), words,
                                    d.states, offset)
                 return syms.view(-1) + ranges[clr][0]

@@ -6,7 +6,9 @@ sharing one stream of 16-bit words.  Symbol i of a slice belongs to step
 i // N and lane i % N; the decoder walks steps forward and refills lanes
 in order 0..N-1, the encoder walks steps backward and emits in lane order
 N-1..0.  Slices chain through the same lane states and stream, so an
-image carries one N*4-byte state flush.
+image carries one N*4-byte state flush.  N runs from 1 to MAX_LANES
+(16384; the JAX package takes any N); above NARROW_LANES the decode
+launches its wide variant, several lanes a thread.
 
 :func:`rans_decode` decodes one slice (one launch);
 :func:`rans_encode_chain` encodes an image's whole chain of slices in one
@@ -33,7 +35,10 @@ from .. import _kernels
 
 RANS_L = 1 << 16  # lower bound of the state interval
 _MASK32 = 0xFFFFFFFF
-MAX_LANES = 1024  # the decode's cluster holds at most 1024 threads
+# lanes of a decode or encode: up to NARROW_LANES the decode's cluster
+# holds one lane a thread, above it several consecutive lanes a thread
+NARROW_LANES = 1024
+MAX_LANES = 16384
 MAX_SLICES = 1024  # an encode chain's offsets fit the kernels' parameters
 
 
@@ -44,7 +49,7 @@ def _check_carry(states, pos, name, batched: bool):
                          f"{'[K, N]' if batched else '[N]'}")
     if not 1 <= states.shape[-1] <= MAX_LANES:
         raise ValueError(f"N={states.shape[-1]} lanes: the kernels take "
-                         f"1..{MAX_LANES}")
+                         f"1..{MAX_LANES} (the limit of the port)")
     K = states.shape[0] if batched else 1
     if K < 1 or pos.dtype != torch.int32 or pos.shape != (K,):
         raise ValueError(f"{name} must be int32 [{'K' if batched else 1}], "
@@ -146,15 +151,17 @@ def rans_decode(cum: torch.Tensor, words: torch.Tensor, states: torch.Tensor,
     _kernels.check(err, "llicti_rans_decode")
     if n > 0:
         rans_decode.launches += 1
+        rans_decode.wide_launches += int(states.shape[-1] > NARROW_LANES)
     return syms
 
 
-rans_decode.launches = 0
+rans_decode.launches = 0       # every launch of Kernel 2
+rans_decode.wide_launches = 0  # those above NARROW_LANES lanes
 
 
 def decode_max_clusters(N: int) -> int:
-    """Clusters of the decode kernel at ``N`` lanes that the card holds at
-    once: a batch of more images decodes in waves."""
+    """Clusters of the decode kernel at ``N`` lanes (1..MAX_LANES) that
+    the card holds at once: a batch of more images decodes in waves."""
     clusters = ctypes.c_int(0)
     _kernels.check(_kernels.lib().llicti_rans_decode_max_clusters(
         N, ctypes.byref(clusters)), "llicti_rans_decode_max_clusters")
@@ -249,10 +256,12 @@ def rans_encode_chain(starts: torch.Tensor, freqs: torch.Tensor,
         _kernels.stream_ptr(dev))
     _kernels.check(err, "llicti_rans_encode_chain")
     rans_encode_chain.launches += 2
+    rans_encode_chain.wide_launches += 2 * (N > NARROW_LANES)
     return cursors
 
 
-rans_encode_chain.launches = 0
+rans_encode_chain.launches = 0       # every launch of Kernel 3
+rans_encode_chain.wide_launches = 0  # those above NARROW_LANES lanes
 
 
 def rans_encode_plain(starts, freqs, states, cursor, buf) -> None:

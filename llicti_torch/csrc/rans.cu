@@ -22,7 +22,9 @@
 // that refill, a warp ballot plus an exclusive prefix over per-warp
 // counts.  Lane states and the word offset carry from slice to slice
 // through device memory.  A batch of K images (the batch container)
-// decodes its K slices in the same launch, one cluster per image.
+// decodes its K slices in the same launch, one cluster per image.  Above
+// 1024 lanes (up to 16384) a thread holds several consecutive lanes
+// (rans_decode_wide_kernel).
 //
 // Encode: every slice's (start, freq) is known before the first one is
 // encoded, so an image's whole chain is one call of two launches, and so
@@ -48,6 +50,11 @@ constexpr int kMaxLanes = 1024;
 // (PERF.md): a cluster of 8 blocks, and 7 coarse entries per row.
 constexpr int kCluster = 8;
 constexpr int kCoarse = 7;
+// Above kMaxLanes lanes the decode runs rans_decode_wide_kernel: kMaxLanes
+// threads of kWideThreads a block, each holding at most kMaxPer lanes.
+constexpr int kMaxWideLanes = 16384;
+constexpr int kWideThreads = kMaxLanes / kCluster;
+constexpr int kMaxPer = kMaxWideLanes / kMaxLanes;
 
 // Decode one slice of n symbols: cum [n, P] int32 rows, strictly
 // increasing with cum[P-1] == 2^16 (cum[0] may be > 0).
@@ -195,6 +202,125 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
   cluster.sync();
 }
 
+// The decode above kMaxLanes lanes (1024 < N <= kMaxWideLanes): the same
+// cluster of kCluster blocks, kWideThreads threads each (kMaxLanes threads
+// in all, 32 warps), and thread k of the cluster holds the R = ceil(N /
+// kMaxLanes) consecutive lanes [k R, k R + R), states in registers.  A
+// step searches the thread's R rows in lockstep, one probe level of all R
+// rows at a time (their loads are independent), with no coarse entries.
+// Refills stay in lane order 0..N-1: a thread's refills are the popcount
+// of its R need bits, prefixed over the warp by a shuffle scan and over
+// the cluster's 32 warps by the exchange of the kernel above; a thread's
+// lanes then read consecutive words, in lane order, straight from global
+// memory (zeros past the stream).  Same arguments and batch layout.
+__global__ void __cluster_dims__(kCluster, 1, 1)
+    __launch_bounds__(kWideThreads, 1)
+    rans_decode_wide_kernel(const int* __restrict__ cum,
+                            const int* __restrict__ words, long long n_words,
+                            long long words_stride,
+                            long long* __restrict__ states,
+                            int* __restrict__ offset, int* __restrict__ syms,
+                            int n, int P, int N) {
+  constexpr int nwarps = kWideThreads / 32;  // per block; kCluster * 4 = 32
+  __shared__ int warp_total[2][nwarps];
+  const long long img = blockIdx.x / kCluster;
+  cum += img * n * P;
+  words += img * words_stride;
+  states += img * N;
+  offset += img;
+  syms += img * n;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int b = (int)cluster.block_rank();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int R = (N + kMaxLanes - 1) / kMaxLanes;
+  const int l0 = (b * kWideThreads + threadIdx.x) * R;
+  unsigned x[kMaxPer];
+#pragma unroll
+  for (int r = 0; r < kMaxPer; ++r)
+    x[r] = r < R && l0 + r < N ? (unsigned)states[l0 + r] : 0u;
+  long long off = *offset;
+  const int T = (n + N - 1) / N;
+  const int levels = 32 - __clz(P);  // halvings that empty [0, P)
+
+  for (int t = 0; t < T; ++t) {
+    const int par = t & 1;
+    const long long i0 = (long long)t * N + l0;
+    // per lane: the search's bounds as in the kernel above; hi = 0 marks a
+    // lane with no symbol this step
+    int lo[kMaxPer], hi[kMaxPer], sv[kMaxPer], nv[kMaxPer];
+#pragma unroll
+    for (int r = 0; r < kMaxPer; ++r) {
+      lo[r] = 0;
+      hi[r] = r < R && l0 + r < N && i0 + r < n ? P : 0;
+      sv[r] = 0;
+      nv[r] = (int)kRansL;
+    }
+    const bool any = hi[0] > 0;  // lanes fill a thread from its first on
+    for (int it = 0; it < levels && any; ++it) {
+#pragma unroll
+      for (int r = 0; r < kMaxPer; ++r) {
+        if (lo[r] < hi[r]) {
+          const int mid = (lo[r] + hi[r]) >> 1;
+          const int v = cum[(i0 + r) * P + mid];
+          if (v <= (int)(x[r] & 0xFFFFu)) {
+            lo[r] = mid + 1;
+            sv[r] = v;
+          } else {
+            hi[r] = mid;
+            nv[r] = v;
+          }
+        }
+      }
+    }
+    // the new states (before any refill) go to x, the symbols to lo
+    unsigned need = 0u;
+#pragma unroll
+    for (int r = 0; r < kMaxPer; ++r) {
+      if (r < R && l0 + r < N && i0 + r < n) {
+        const unsigned slot = x[r] & 0xFFFFu, start = (unsigned)sv[r];
+        x[r] = ((unsigned)nv[r] - start) * (x[r] >> 16) + slot - start;
+        if (x[r] < kRansL) need |= 1u << r;
+        syms[i0 + r] = lo[r] - 1;
+      }
+    }
+    const int cnt = __popc(need);
+    int incl = cnt;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += v;
+    }
+    if (lane == 31) warp_total[par][warp] = incl;
+    cluster.sync();
+    int c = 0;  // lane k holds the total of the cluster's warp k
+    if (lane < kCluster * nwarps)
+      c = *cluster.map_shared_rank(&warp_total[par][lane % nwarps],
+                                   lane / nwarps);
+    int wincl = c;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(kFull, wincl, o);
+      if (lane >= o) wincl += v;
+    }
+    const int total = __shfl_sync(kFull, wincl, 31);
+    long long pos =
+        off + __shfl_sync(kFull, wincl - c, b * nwarps + warp) + incl - cnt;
+#pragma unroll
+    for (int r = 0; r < kMaxPer; ++r) {
+      if ((need >> r) & 1u) {
+        x[r] = (x[r] << 16) | (pos < n_words ? (unsigned)words[pos] : 0u);
+        ++pos;
+      }
+    }
+    off += total;
+  }
+#pragma unroll
+  for (int r = 0; r < kMaxPer; ++r)
+    if (r < R && l0 + r < N) states[l0 + r] = (long long)x[r];
+  if (l0 == 0) *offset = (int)off;
+  cluster.sync();
+}
+
 // ---- Kernel 3: the encode chain ------------------------------------------
 //
 // An image's slices, concatenated in encode order (slice s holds symbols
@@ -217,8 +343,10 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
 //     once a block; each lane stores its words two steps to a 32-bit
 //     word.  Scratch is padded to whole blocks, so no store needs a guard.
 //  2. rans_encode_place_kernel: the JAX scan's placement.  A block takes
-//     kPlace / W whole steps; the words before them are the W warps'
-//     running counts at the step before, the block's own entries are
+//     kPlace / W whole steps (kPlace entries of one step when W > kPlace,
+//     N > 8192); the words before them are the W warps'
+//     running counts at the step before (plus the step's earlier entries'
+//     words when a block starts inside a step), the block's own entries are
 //     prefixed in emission order (steps descending within a slice, warps
 //     descending), and a word's rank among the higher lanes of its warp
 //     completes its position.  Positions >= cap are dropped but counted
@@ -422,7 +550,25 @@ __device__ __forceinline__ int block_scan(int v, int* warp_sums) {
 __device__ __forceinline__ unsigned words_through(
     const uint2* __restrict__ entries, long long g, int W, long long Gp) {
   const int lane = threadIdx.x & 31;
-  return __reduce_add_sync(kFull, lane < W ? entries[lane * Gp + g].y : 0u);
+  unsigned v = 0u;
+  for (int w = lane; w < W; w += 32) v += entries[w * Gp + g].y;
+  return __reduce_add_sync(kFull, v);
+}
+
+// The words of step g's first j_end entries in emission order, summed by
+// one warp.
+__device__ __forceinline__ unsigned words_in_step(
+    const uint2* __restrict__ entries, long long g, int j_end, long long Gp) {
+  const int lane = threadIdx.x & 31;
+  unsigned v = 0u;
+  for (int j = lane; j < j_end; j += 32) v += __popc(entries[j * Gp + g].x);
+  return __reduce_add_sync(kFull, v);
+}
+
+// Entries a placement block takes: whole steps while a step's W entries
+// fit in it (W <= kPlace), else kPlace entries, part of one step.
+__host__ __device__ __forceinline__ long long place_entries(int W) {
+  return W <= kPlace ? (long long)(kPlace / W) * W : kPlace;
 }
 
 __global__ void __launch_bounds__(kPlace)
@@ -441,18 +587,22 @@ __global__ void __launch_bounds__(kPlace)
   cursors += img * plan.S;
   buf += img * cap;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int W = (N + 31) >> 5, per = kPlace / W;  // steps per block
+  const int W = (N + 31) >> 5;
+  const long long E = place_entries(W);
   const long long Gp = padded_steps(G);
-  const long long g_lo = (long long)blockIdx.x * per;
+  // the block's first entry, in emission order (e = g W + j: step g, the
+  // j-th warp to emit in it, warp W - 1 - j)
+  const long long e_lo = (long long)blockIdx.x * E;
+  const long long g_lo = e_lo / W;
+  const int j_lo = (int)(e_lo % W);
   const long long cur0 = *cursor0;
   const long long base =
-      cur0 + (g_lo > 0 ? words_through(entries, g_lo - 1, W, Gp) : 0u);
-  // thread tid holds entry tid: step g_lo + tid / W, emitted by warp
-  // src = W - 1 - tid % W (emission order within a step)
-  const long long g = g_lo + tid / W;
-  const int src = W - 1 - tid % W;
-  const unsigned b =
-      tid < per * W && g < G ? entries[(W - 1 - src) * Gp + g].x : 0u;
+      cur0 + (g_lo > 0 ? words_through(entries, g_lo - 1, W, Gp) : 0u) +
+      (j_lo > 0 ? words_in_step(entries, g_lo, j_lo, Gp) : 0u);
+  // thread tid holds entry e_lo + tid: step g, emitted by warp src
+  const long long g = (e_lo + tid) / W;
+  const int j = (int)((e_lo + tid) % W), src = W - 1 - j;
+  const unsigned b = tid < E && g < G ? entries[j * Gp + g].x : 0u;
   const int incl = block_scan(__popc(b), warp_sums);
   // warp k places the words of its 32 entries, lane i those of lane i of
   // each: all 32 loads first, then the stores; entry jj's fields come
@@ -500,31 +650,38 @@ static int decode_threads(int N) {
 
 // One slice of K images: cum [K, n, P], words rows of n_words valid words
 // words_stride apart, states [K, N], offset [K], syms [K, n].
+// N <= kMaxLanes runs rans_decode_kernel, above it rans_decode_wide_kernel.
 extern "C" int llicti_rans_decode(const int* cum, const int* words,
                                   long long n_words, long long words_stride,
                                   long long* states, int* offset, int* syms,
                                   int n, int P, int N, int K, void* stream) {
-  if (N < 1 || N > kMaxLanes || P < 2 || K < 1 || K > (1 << 20) ||
+  if (N < 1 || N > kMaxWideLanes || P < 2 || K < 1 || K > (1 << 20) ||
       n_words < 0 || words_stride < n_words)
     return (int)cudaErrorInvalidValue;
   if (n <= 0) return (int)cudaGetLastError();
-  rans_decode_kernel<<<kCluster * K, decode_threads(N), 0,
-                       (cudaStream_t)stream>>>(cum, words, n_words,
-                                               words_stride, states, offset,
-                                               syms, n, P, N);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (N <= kMaxLanes)
+    rans_decode_kernel<<<kCluster * K, decode_threads(N), 0, st>>>(
+        cum, words, n_words, words_stride, states, offset, syms, n, P, N);
+  else
+    rans_decode_wide_kernel<<<kCluster * K, kWideThreads, 0, st>>>(
+        cum, words, n_words, words_stride, states, offset, syms, n, P, N);
   return (int)cudaGetLastError();
 }
 
 // Clusters of the decode at N lanes that the card holds at once; a batch
 // of more images runs in waves.
 extern "C" int llicti_rans_decode_max_clusters(int N, int* clusters) {
-  if (N < 1 || N > kMaxLanes) return (int)cudaErrorInvalidValue;
+  if (N < 1 || N > kMaxWideLanes) return (int)cudaErrorInvalidValue;
+  const bool wide = N > kMaxLanes;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(kCluster);
-  cfg.blockDim = dim3(decode_threads(N));
+  cfg.blockDim = dim3(wide ? kWideThreads : decode_threads(N));
   // the cluster shape is the kernel's own (__cluster_dims__)
-  return (int)cudaOccupancyMaxActiveClusters(clusters, rans_decode_kernel,
-                                             &cfg);
+  return (int)(wide ? cudaOccupancyMaxActiveClusters(
+                          clusters, rans_decode_wide_kernel, &cfg)
+                    : cudaOccupancyMaxActiveClusters(
+                          clusters, rans_decode_kernel, &cfg));
 }
 
 // Scratch of K chains of G steps over N lanes, in int32 words.
@@ -544,8 +701,8 @@ extern "C" int llicti_rans_encode_chain(
     const int* starts, const int* freqs, const int* plan, int S, long long G,
     long long* states, int* cursor, int* buf, int cap, int* cursors,
     int* scratch, int N, int K, void* stream) {
-  if (N < 1 || N > kMaxLanes || S < 1 || S > kMaxSlices || G < 0 || K < 1 ||
-      K > 65535)
+  if (N < 1 || N > kMaxWideLanes || S < 1 || S > kMaxSlices || G < 0 ||
+      K < 1 || K > 65535)
     return (int)cudaErrorInvalidValue;
   if (G == 0) return (int)cudaGetLastError();
   ChainPlan p;
@@ -559,8 +716,8 @@ extern "C" int llicti_rans_encode_chain(
                                    scratch, N);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const long long per = kPlace / W;
-  rans_encode_place_kernel<<<dim3((unsigned)((G + per - 1) / per), K), kPlace,
+  const long long E = place_entries(W);
+  rans_encode_place_kernel<<<dim3((unsigned)((G * W + E - 1) / E), K), kPlace,
                              0, st>>>(scratch, p, G, N, cursor, cursors, buf,
                                       cap);
   return (int)cudaGetLastError();

@@ -12,7 +12,9 @@ card.  Semantics kept from the reference (dataloaders/image_dl.py:16-111):
 * patches_per_img > 1 stacks multiple random crops per image.
 
 A synthetic dataset (gradients+texture+noise, seeded) needs no image files
-and no PIL; decoding image files needs PIL.
+and no PIL; decoding image files needs PIL.  Unlike the JAX package's,
+:func:`list_images` and :func:`load_rgb` also take a uint8 H×W×3 ``.npy``
+array, the file both packages' decoders write where PIL is missing.
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ try:  # decoding image files needs PIL; the synthetic data set does not
 except ImportError:
     _HAS_PIL = False
 
-_EXTS = (".png", ".jpg", ".jpeg")
+_EXTS = (".png", ".jpg", ".jpeg", ".npy")
 
 
 def list_images(roots: Sequence[str]) -> List[str]:
@@ -45,6 +47,14 @@ def list_images(roots: Sequence[str]) -> List[str]:
 
 
 def load_rgb(path: str) -> np.ndarray:
+    """An image file as uint8 [H, W, 3] RGB: PNG / JPEG through PIL, or a
+    uint8 [H, W, 3] ``.npy`` array as it is."""
+    if path.lower().endswith(".npy"):
+        img = np.load(path, allow_pickle=False)
+        if img.dtype != np.uint8 or img.ndim != 3 or img.shape[-1] != 3:
+            raise ValueError(f"{path}: expected a uint8 [H, W, 3] array, "
+                             f"got {img.dtype} {img.shape}")
+        return img
     if not _HAS_PIL:
         raise RuntimeError(
             f"cannot decode {path}: PIL is not installed (the synthetic "

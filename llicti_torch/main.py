@@ -1,0 +1,70 @@
+"""Experiment runner: ``python -m llicti_torch.main CONFIG.json [--mode M]
+[--device D]``.
+
+The port's counterpart of the root ``main.py``.  Accepts reference-style
+JSON configs (``configs/llicti_A.json``) or the nested format, keeps the
+agent registry (``LLICTIAgent`` / ``Trainer``) and the reference's
+multi-experiment sweep (``multi_agent`` / ``multi_param``, reference
+main.py:17-24): each sweep value gets its own ``exp_<v>`` experiment
+subdir and a full ``run()`` + ``finalize()``.  Runs on the CUDA card unless
+``--device cpu`` is given; ``--mesh`` (data parallelism over several
+cards) is not ported yet (ROADMAP A6) and raises, as a config's
+``num_data_shards > 1`` does in the Trainer.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+from typing import List
+
+from .config import config_from_dict
+from .training.trainer import Trainer
+
+# agent registry: reference configs select the agent by class name
+# (reference main.py:30 via globals()); LLICTIAgent maps to the Trainer
+AGENTS = {"LLICTIAgent": Trainer, "Trainer": Trainer}
+
+
+def sweep(raw: dict) -> List[dict]:
+    """The raw configs of a run: ``raw`` itself, or one per value of its
+    ``multi_param`` sweep, each with ``exp_name`` ``<base>/exp_<v>``."""
+    if not (raw.get("multi_agent") and raw.get("multi_param")):
+        return [raw]
+    key = raw["multi_param"]
+    vals = raw.get(key, [])
+    if not isinstance(vals, list):
+        return [raw]
+    base = raw.get("multi_exp_name") or raw.get("exp_name", "exp")
+    return [dict(raw, **{key: v, "exp_name": os.path.join(base, f"exp_{v}")})
+            for v in vals]
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description="LLICTI on PyTorch + CUDA")
+    ap.add_argument("config", help="JSON config path")
+    ap.add_argument("--mode", default=None,
+                    help="override mode (train/eval_model/...)")
+    ap.add_argument("--mesh", action="store_true",
+                    help="data parallelism over several cards (not ported)")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    if args.mesh:
+        raise NotImplementedError("--mesh: data parallelism over several "
+                                  "cards is not ported yet (ROADMAP A6)")
+
+    with open(args.config) as f:
+        raw = json.load(f)
+    for raw_i in sweep(raw):
+        cfg = config_from_dict(raw_i)
+        if args.mode:
+            cfg = dataclasses.replace(cfg, mode=args.mode)
+        trainer = AGENTS[raw_i.get("agent", "Trainer")](cfg,
+                                                        device=args.device)
+        trainer.run()
+        trainer.finalize()
+
+
+if __name__ == "__main__":
+    main()

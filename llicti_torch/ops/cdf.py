@@ -22,7 +22,7 @@ import torch
 from .. import _kernels
 from .bounds import lower_bound
 from .gmm import (SCALE_BOUND_LOGISTIC, SCALE_BOUND_NORMAL, WEIGHT_BOUND,
-                  _sigmoid)
+                  _sigmoid, cdf_float_to_cum_int32, cum_start_freq)
 
 _SQRT2_INV = np.float32(2 ** -0.5)
 # Abramowitz-Stegun 7.1.26 erf coefficients (|err| < 1.5e-7)
@@ -47,18 +47,6 @@ def _erf_as(x: torch.Tensor) -> torch.Tensor:
 
 def _phi(z: torch.Tensor) -> torch.Tensor:
     return 0.5 * (1.0 + _erf_as(z * _f32(_SQRT2_INV, z)))
-
-
-def _quantise(acc: torch.Tensor) -> torch.Tensor:
-    """Mixture CDF rows ``[n, P]`` -> the coder's int32 table: quantised to
-    2^16 - (P - 1), running max, plus the column index, last entry 2^16."""
-    P = acc.shape[1]
-    new_max = float(2 ** 16 - (P - 1))
-    q = torch.round(acc.clamp(0.0, 1.0) * new_max).to(torch.int32)
-    q = torch.cummax(q, dim=1).values
-    q = q + torch.arange(P, dtype=torch.int32, device=q.device)
-    q[:, -1] = 1 << 16
-    return q
 
 
 def _normalise(w: torch.Tensor) -> torch.Tensor:
@@ -122,13 +110,8 @@ def gmm_cdf_from_pmap_plain(points, pmap, y, M, std0, mean0, w0, upd,
     for x in range(M):
         z = (points[None, :] - mean[:, x:x + 1]) * inv[:, x:x + 1]
         acc = acc + w[:, x:x + 1] * cdf(z)
-    q = _quantise(acc)
-    P = q.shape[1]
-    sym = torch.round(y[:, sym_ch] * 255.0).to(torch.int32) - minv
-    sym = sym.clamp(0, P - 2).long()[:, None]
-    lo = q.gather(1, sym)[:, 0]
-    hi = q.gather(1, sym + 1)[:, 0]
-    return q, lo, hi - lo
+    q = cdf_float_to_cum_int32(acc)
+    return (q,) + cum_start_freq(q, y[:, sym_ch], minv)
 
 
 def gmm_cdf_from_pmap(points: torch.Tensor, pmap: torch.Tensor,
@@ -197,7 +180,7 @@ def gmm_cdf_table_int32_plain(points, stdevs, means, weights):
     for x in range(X):
         z = (points[None, :] - mean[:, x:x + 1]) / std[:, x:x + 1]
         acc = acc + w[:, x:x + 1] * _phi(z)
-    return _quantise(acc).reshape(lead + (points.shape[0],))
+    return cdf_float_to_cum_int32(acc).reshape(lead + (points.shape[0],))
 
 
 def gmm_cdf_table_int32(points: torch.Tensor, stdevs: torch.Tensor,

@@ -128,3 +128,28 @@ def cdf_float_to_uint16(cdf: torch.Tensor) -> torch.Tensor:
     q = torch.cummax(q, dim=-1).values
     q = q + torch.arange(P, dtype=torch.int32, device=q.device)
     return (q & 0xFFFF).to(torch.uint16)
+
+
+def cdf_float_to_cum_int32(cdf: torch.Tensor) -> torch.Tensor:
+    """Quantise a float CDF ``[..., P]`` to the device coder's int32 table
+    (``llicti_tpu/coder/rans_device.py:45``): the uint16 contract's
+    quantisation, running max and column index, kept in int32 with the last
+    entry exactly 2^16."""
+    P = cdf.shape[-1]
+    new_max = float(2 ** 16 - (P - 1))
+    q = torch.round(cdf.clamp(0.0, 1.0) * new_max).to(torch.int32)
+    q = torch.cummax(q, dim=-1).values
+    q = q + torch.arange(P, dtype=torch.int32, device=q.device)
+    q[..., -1] = 1 << 16
+    return q
+
+
+def cum_start_freq(cum: torch.Tensor, y: torch.Tensor, minv: int):
+    """The encoder's (start, freq) int32 ``[n]`` from int32 tables ``cum``
+    ``[n, P]`` at the symbols of values ``y`` ``[n]`` (/255 domain, range
+    minimum ``minv``), each symbol clipped to [0, P - 2] as the JAX
+    package's one-hot lookup clips it (``llicti_tpu/codec.py:372-381``)."""
+    sym = (torch.round(y * 255.0).to(torch.int32) - minv).clamp(
+        0, cum.shape[-1] - 2).long()[:, None]
+    lo = cum.gather(1, sym)[:, 0]
+    return lo, cum.gather(1, sym + 1)[:, 0] - lo

@@ -116,6 +116,25 @@ def adam_state_from_optax(mu: Mapping, nu: Mapping, count: int,
     return out
 
 
+def flax_from_state_dict(state: Mapping[str, torch.Tensor],
+                         cfg: ModelConfig) -> Dict[str, np.ndarray]:
+    """A port model's ``state_dict`` (as a checkpoint holds it) -> its
+    parameters as {flat Flax name: float32 array}, conv kernels OIHW ->
+    HWIO: the inverse of :func:`params_from_flax`, so that ``Codec`` codes
+    with a port checkpoint's weights.  Raises KeyError on a name that is
+    no parameter of ``cfg``'s model."""
+    names = {_torch_name(k): k for k in init_params(cfg)}
+    out = {}
+    for tname, t in state.items():
+        if tname not in names:
+            raise KeyError(f"{tname!r} is no parameter of this model")
+        arr = t.detach().cpu().numpy().astype(np.float32)
+        if names[tname].endswith("Conv_0/kernel"):
+            arr = arr.transpose(2, 3, 1, 0)
+        out[names[tname]] = np.ascontiguousarray(arr)
+    return out
+
+
 def init_params(cfg: ModelConfig, seed: int = 0) -> Dict[str, np.ndarray]:
     """Fresh parameters of ``cfg`` as {flat Flax name: float32 array}, with
     the names, shapes and init distributions of ``LLICTIModel.init`` in the

@@ -55,6 +55,7 @@ img = np.random.default_rng(0).integers(0, 256, (21, 18, 3), dtype=np.uint8)
 out = codec.decompress(codec.compress(img))
 assert np.array_equal(out[0], img)
 
+from llicti_torch import cli, eval_protocol, main
 from llicti_torch.config import config_from_json
 from llicti_torch.data import TrainLoader, ImageDataset
 from llicti_torch.ops.factorized import FactorizedPrior
@@ -100,6 +101,9 @@ def test_static_scan_finds_no_jax_import():
     files = sorted((ROOT / "llicti_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
+    names = {p.relative_to(ROOT).as_posix() for p in files}
+    assert {"llicti_torch/cli.py", "llicti_torch/main.py",
+            "llicti_torch/eval_protocol.py"} <= names
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]

@@ -270,7 +270,8 @@ def test_wrappers_reject_bad_input():
     with pytest.raises(ValueError):
         tr.rans_decode(cum, words, states.int(), off)
     with pytest.raises(ValueError):
-        tr.rans_decode(cum, words, torch.zeros((1025,), dtype=torch.int64),
+        tr.rans_decode(cum, words,
+                       torch.zeros((tr.MAX_LANES + 1,), dtype=torch.int64),
                        off)
     with pytest.raises(ValueError):
         tr.rans_encode(words, words[:2], states, off, words)
