@@ -109,10 +109,32 @@ Phases, each of which raises on failure:
      (d) the Trainer's eval_model over three images (the trained weights
      from a port .pt) and the eval protocol over a temporary corpus of 2
      valid + 2 test images: lossless, JAX's keys, rate from the bytes,
-     coder gaps within +-1 %; (e) flops_est on the card equal to the CPU's.
+     coder gaps within +-1 %; (e) flops_est on the card equal to the CPU's;
+  13. multi-device (llicti_torch.parallel), each part with the launch counts
+     set to 0 just before it and read just after: (a) in a one-rank NCCL
+     group, ShardedCodec at G = 1 and G = 4 (N = 128) on 512x768 and
+     310x598 with the trained weights: lossless, last_ycocg_err 0, the
+     header bytes JAX's, num_bytes within max(0.1 %, 16 B) of JAX's (CPU
+     constants, JAX_SP), 45 Kernel 2 launches a decode, 2 of Kernel 3 an
+     encode, none of Kernel 1; encode / decode ms (medians of 5) and peak
+     memory at 512x768; (b) Kernels 2 and 3 at the sharded shapes (K = 4
+     shards of the finest Y slice in one launch, the four 45-slice chains
+     in one call) bit-identical to their plain versions, timed with their
+     bounds; (c) two processes on the one card (this script with
+     --sp-rank R PORT DIR), gloo over CUDA tensors staged through host
+     memory: G = 4 over 2 ranks (the same container on both, lossless,
+     within 16 B of one rank's), one data-parallel paper_a step (2 x 32
+     patches of 160^2, 16 a rank; init_params(cfg, 1337)): no hand-kernel
+     launch, equal losses and parameters on both ranks, the loss within 1e-4 relative of the
+     one-rank step's and the parameters within phase 11's tolerance, and
+     the spatial = 2 rate of 512x768 within 1e-5 of one device's; their
+     times are two processes sharing one card.
 The line before the last is {"kernels": [...]}: Kernel 2's and Kernel 3's
 rows also carry the batch figures (batch_k, batch_ms, batch_plain_ms,
-batch_bound_ms, batch_launches); rans_decode_wide and rans_encode_wide are
+batch_bound_ms, batch_launches) and phase 13's (sharded_launches over a
+G = 4 encode / decode, and "sharded": the K = 4 launch / call's ms,
+plain_ms, bound_ms, max_abs_err beside G = 1's and G = 4's round-trip ms
+and peak memory); rans_decode_wide and rans_encode_wide are
 Kernels 2 and 3 above 1024 lanes (N = 2048's figures, each N's under
 "lanes"); the last line is {"ok": true, "device": {...}}.
 """
@@ -144,6 +166,10 @@ from llicti_torch.ops.color import rgb_int_to_ycocg_r_int
 from llicti_torch.ops.bounds import lower_bound
 from llicti_torch.ops.gmm import SCALE_BOUND_NORMAL, cdf_sampling_points
 from llicti_torch.ops.wavelet import lazy_dwt
+from llicti_torch.parallel import (ShardedCodec, batch_sharding, initialize,
+                                   make_mesh, make_parallel_train_step,
+                                   make_sharded_rate_fn, make_sp_mesh,
+                                   shard_state)
 from llicti_torch.training import Trainer, make_optimizer, make_train_step
 from llicti_torch.training.loss import rate_loss_list
 from llicti_torch.utils import CheckpointManager
@@ -1922,6 +1948,382 @@ def port_phase(cfg, params, img, odd, codec, kres, counters):
     return rows, wide
 
 
+# ---- phase 13: multi-device: the row-sharded codec, DP and spatial ------
+
+SP_LANES = 128  # the JAX ShardedCodec's default lanes a shard
+SP_SHARDS = 4
+# the JAX package's ShardedCodec on the CPU (G fake devices, N = 128, the
+# trained weights): (G, image) -> (num_bytes, header hex)
+JAX_SP = {(4, "512x768"): (860_216, "0504100018000002000000030000"),
+          (4, "310x598"): (496_692, "05040c0013003601000056020000"),
+          (1, "512x768"): (859_058, "0501100018000002000000030000"),
+          (1, "310x598"): (421_572, "05010a0013003601000056020000")}
+SP_TIMEOUT = 600  # seconds the two-rank run may take
+SP_TIMED = 3  # data-parallel steps timed after the compared one
+
+
+def sharded_round_trips(cfg, params, images, counters):
+    """ShardedCodec at G = 1 and 4 (one rank, N = 128): each image's round
+    trip lossless with last_ycocg_err 0, its header JAX's, num_bytes
+    within max(0.1 %, 16 B) of JAX's, 9S Kernel 2 launches a decode and 2
+    of Kernel 3 an encode, none of Kernel 1; the 512x768 encode and
+    decode ms (medians of 5) and peak memory.  -> ({G: figures}, the G = 4
+    codec, its 512x768 container)."""
+    S = cfg.num_scales
+    out, codec, flagship = {}, None, None
+    for G in (1, SP_SHARDS):
+        codec = ShardedCodec(cfg, params, mesh=make_sp_mesh(G),
+                             num_lanes=SP_LANES)
+        for label, img in images.items():
+            codec.decompress(codec.compress(img))  # warm-up
+            reset_counts(counters)
+            streams = codec.compress(img)
+            torch.cuda.synchronize()
+            enc = {n: fn.launches for n, fn in counters.items()}
+            reset_counts(counters)
+            dec_img = codec.decompress(streams, xorg=img)
+            dec = {n: fn.launches for n, fn in counters.items()}
+            nb = ShardedCodec.num_bytes(streams)
+            jnb, jhdr = JAX_SP[(G, label)]
+            check(np.array_equal(dec_img[0], img), f"G={G} {label}: lossy")
+            check(codec.last_ycocg_err == 0, f"G={G} {label}: YCoCg error")
+            check(len(streams[1]) == G, f"G={G}: {len(streams[1])} blobs")
+            check(streams[0][0].hex() == jhdr, f"G={G} {label}: header "
+                  f"{streams[0][0].hex()} is not JAX's {jhdr}")
+            check(abs(nb - jnb) <= max(0.001 * jnb, 16), f"G={G} {label}: "
+                  f"num_bytes {nb} not within max(0.1 %, 16 B) of JAX's {jnb}")
+            check(enc["rans_encode"] == 2 and enc["rans_decode"] == 0
+                  and dec["rans_decode"] == 9 * S and dec["rans_encode"] == 0
+                  and enc["gmm_cdf_from_pmap"] == dec["gmm_cdf_from_pmap"]
+                  == 0, f"G={G} {label}: launches encode {enc}, decode {dec}")
+            row = {"num_bytes": nb, "jax_num_bytes": jnb,
+                   "encode_launches": enc, "decode_launches": dec}
+            if label == "512x768":
+                torch.cuda.reset_peak_memory_stats()
+                row["encode_ms"] = median_ms(lambda: codec.compress(img))
+                row["decode_ms"] = median_ms(lambda: codec.decompress(streams))
+                row["peak_mib"] = peak_mib()
+                row["sha256"] = hashlib.sha256(
+                    ShardedCodec.serialize(streams)).hexdigest()
+                if G == SP_SHARDS:
+                    flagship = streams
+            print(f"sharded codec G={G} N={SP_LANES} {label}: {nb} bytes "
+                  f"(JAX {jnb}, {nb - jnb:+d}), lossless, header JAX's, "
+                  f"launches encode {enc} decode {dec}"
+                  + (f"; encode {row['encode_ms']:.2f} ms, decode "
+                     f"{row['decode_ms']:.2f} ms (medians of 5), peak "
+                     f"{row['peak_mib']:.1f} MiB, sha256 {row['sha256']}; "
+                     f"{card_line()}" if "encode_ms" in row else ""))
+            out.setdefault(G, {})[label] = row
+    return out, codec, flagship
+
+
+def sharded_kernels(codec, img):
+    """Kernels 2 and 3 at the sharded path's shapes (K = 4 shards, N = 128)
+    against their plain versions, bit for bit: the finest Y slice's four
+    shards in one launch / call (float-CDF tables, as the codec builds
+    them), and Kernel 3 on the image's four 45-slice chains in one call.
+    -> (decode row, encode row)."""
+    cfg, dev, N, K = codec.cfg, codec.device, codec.N, codec.G
+    inner = codec._codec
+    minmax, _ = cmod.host_header(img[None], cfg.dwtlevels)
+    ranges = [cmod.clr_range(clr, minmax) for clr in range(3)]
+    with torch.no_grad(), exact_math():
+        y0 = inner._front(torch.from_numpy(img[None].copy()).to(dev))[0]
+        n = y0.shape[1] * y0.shape[2]
+        pm = inner.model.band_params(
+            y0[..., :cfg.cond_channels].contiguous(), 0, 0).reshape(n, -1)
+        y2 = y0.reshape(n, -1).contiguous()
+        cum, st, fr = inner._tables(0, 0, pm, y2, ranges,
+                                    inner._pts3(ranges))
+    m = n // K
+    cum, st, fr = cum.view(K, m, -1), st.view(K, m), fr.view(K, m)
+    P = cum.shape[-1]
+    sch = cmod.sym_channel(cfg, 0, 0)
+    true_sym = (torch.round(y2[:, sch] * 255.0).int() - ranges[0][0]).view(
+        K, m)
+
+    # Kernel 3 on the four shards' Y slices, then Kernel 2 decoding them
+    offsets = torch.tensor([0, m], dtype=torch.int64)
+    cap = m + N
+    (_, states, cursor, buf), enc_err = chain_outputs(
+        st, fr, offsets, batch_carry(K, N, cap, dev))
+    check(enc_err == 0, f"Kernel 3 (K={K} shards, Y slice) != plain")
+    totals = cursor.tolist()
+    words = torch.zeros((K, max(totals)), dtype=torch.int32, device=dev)
+    for k, t in enumerate(totals):
+        words[k, :t] = buf[k, :t].flip(0)  # the stream's order
+    states0 = states.clone()
+
+    def fresh(_):
+        return (states0.clone(),
+                torch.zeros((K,), dtype=torch.int32, device=dev))
+
+    outs = []
+    for fn in (rans.rans_decode, rans.rans_decode_plain):
+        s, o = fresh(0)
+        outs.append((fn(cum, words, s, o), s, o))
+    torch.cuda.synchronize()
+    (ksy, kst, koff), (psy, pst, poff) = outs
+    dec_err = max(max_abs(ksy, psy), max_abs(kst, pst), max_abs(koff, poff))
+    check(dec_err == 0, f"Kernel 2 (K={K} shards) != plain")
+    check(torch.equal(ksy, true_sym), "Kernel 2 lost the shards' symbols")
+    dec_ms = cuda_ms(lambda s, o: rans.rans_decode(cum, words, s, o), 20,
+                     fresh)
+    dec_plain = cuda_ms(lambda s, o: rans.rans_decode_plain(cum, words, s,
+                                                            o), 1, fresh)
+    dec_bnd = bound(4 * K * m * (math.ceil(math.log2(P + 1)) + 1)
+                    + 4 * sum(totals) + 16 * K * N, 0)
+
+    # Kernel 3 on the four shards' whole chains, one call
+    starts, freqs, offs, ccap = codec.encode_inputs(img)
+    (_, _, ccur, _), ch_err = chain_outputs(
+        starts, freqs, offs, batch_carry(K, N, ccap, dev))
+    check(ch_err == 0, f"Kernel 3 (K={K} shards' 45-slice chains) != plain")
+    ch_ms = cuda_ms(lambda s, c, b: rans.rans_encode_chain(
+        starts, freqs, offs, s, c, b), 20,
+        lambda _: batch_carry(K, N, ccap, dev))
+    ch_plain = cuda_ms(lambda s, c, b: rans.rans_encode_chain_plain(
+        starts, freqs, offs, s, c, b), 1,
+        lambda _: batch_carry(K, N, ccap, dev))
+    ch_bnd = bound(8 * starts.numel() + 4 * sum(ccur.tolist())
+                   + 16 * K * N, 0)
+    print(f"sharded kernel2 decode, K={K} shards of the finest Y slice "
+          f"(P={P}, {m} symbols a shard, N={N}, {-(-m // N)} steps): "
+          f"identical symbols, states, offsets; {dec_ms:.5f} ms a launch, "
+          f"plain {dec_plain:.5f} ms, bound {dec_bnd[0]:.5f} ms "
+          f"({dec_bnd[1]}); {card_line()}")
+    print(f"sharded kernel3 encode, K={K} shards' chains ({len(offs) - 1} "
+          f"slices, {starts.shape[1]} symbols each, N={N}): identical words, "
+          f"per-slice cursors, states; {ch_ms:.5f} ms a call, plain "
+          f"{ch_plain:.5f} ms, bound {ch_bnd[0]:.5f} ms ({ch_bnd[1]})")
+    return ({"shards": K, "lanes": N, "ms": dec_ms, "plain_ms": dec_plain,
+             "bound_ms": dec_bnd[0], "max_abs_err": dec_err},
+            {"shards": K, "lanes": N, "ms": ch_ms, "plain_ms": ch_plain,
+             "bound_ms": ch_bnd[0], "max_abs_err": max(enc_err, ch_err)})
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def params_digest(model) -> str:
+    return hashlib.sha256(b"".join(
+        p.detach().cpu().numpy().tobytes() for p in model.parameters())
+    ).hexdigest()
+
+
+def sp_worker(rank: int, port: int, out_dir: str) -> None:
+    """One of two ranks on the same card, gloo over CUDA tensors (staged
+    through host memory): the sharded codec at G = 4, one data-parallel
+    paper_a step (rank 0 also takes the one-rank step on the same global
+    batch) and the rate with spatial = 2 (rank 0 also the one-device
+    rate).  Writes rank{rank}.json to ``out_dir``."""
+    import torch.distributed as dist
+    initialize(f"localhost:{port}", 2, rank, backend="gloo", device="cuda")
+    check(dist.get_backend() == "gloo" and dist.get_world_size() == 2,
+          "the two-rank group")
+    dev = torch.device("cuda")
+    res = {"rank": rank}
+    cfg = ModelConfig()
+    params = load_npz()
+    counters = {"gmm_cdf_from_pmap": cdf.gmm_cdf_from_pmap,
+                "rans_decode": rans.rans_decode,
+                "rans_encode": rans.rans_encode_chain}
+
+    # (a) the row-sharded codec, G = 4 over 2 ranks
+    codec = ShardedCodec(cfg, params, mesh=make_sp_mesh(SP_SHARDS),
+                         num_lanes=SP_LANES)
+    img = synthetic_image(512, 768, seed=42)
+    codec.decompress(codec.compress(img))  # warm-up
+    reset_counts(counters)
+    streams, res["encode_ms"] = timed(lambda: codec.compress(img))
+    res["encode_launches"] = {n: fn.launches for n, fn in counters.items()}
+    reset_counts(counters)
+    dec, res["decode_ms"] = timed(lambda: codec.decompress(streams,
+                                                           xorg=img))
+    res["decode_launches"] = {n: fn.launches for n, fn in counters.items()}
+    res["lossless"] = bool(np.array_equal(dec[0], img))
+    res["ycocg_err"] = codec.last_ycocg_err
+    res["num_bytes"] = ShardedCodec.num_bytes(streams)
+    res["sha256"] = hashlib.sha256(
+        ShardedCodec.serialize(streams)).hexdigest()
+
+    # (b) one data-parallel step of paper_a at its full batch, 16 a rank
+    tcfg = config_from_json(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "configs", "paper_a.json"))
+    tc = tcfg.train
+    ds = ImageDataset(synthetic_len=4 * tc.batch_size, synthetic_size=160,
+                      seed=TRAIN_SEED)
+    batch = next(iter(TrainLoader(ds, tc.batch_size, tc.patch_size,
+                                  grad_acc=tc.grad_acc_iters,
+                                  seed=TRAIN_SEED)))
+    mesh = make_mesh(data=2)
+    model = params_from_flax(init_params(tcfg.model, TRAIN_SEED),
+                             tcfg.model).to(dev)
+    opt = make_optimizer(model, tc.learning_rate)
+    shard_state(model, opt, mesh)
+    step = make_parallel_train_step(model, opt, mesh, tc.grad_clip_value)
+    local = torch.from_numpy(np.ascontiguousarray(
+        batch_sharding(mesh, has_acc_axis=True)(batch))).to(dev)
+    res["local_batch"] = list(local.shape)
+    reset_counts(counters)
+    with exact_math():
+        m, res["step_ms_first"] = timed(lambda: step(local))
+    res["loss"] = float(m["loss"])
+    res["params_sha256"] = params_digest(model)
+    after = [p.detach().clone() for p in model.parameters()]
+    with exact_math():
+        times = [timed(lambda: step(local))[1] for _ in range(SP_TIMED)]
+    res["step_ms"] = sorted(times)[SP_TIMED // 2]
+    res["step_launches"] = {n: fn.launches for n, fn in counters.items()}
+    if rank == 0:
+        ref = params_from_flax(init_params(tcfg.model, TRAIN_SEED),
+                               tcfg.model).to(dev)
+        with exact_math():
+            mr = make_train_step(ref, make_optimizer(ref, tc.learning_rate),
+                                 tc.grad_clip_value)(
+                torch.from_numpy(batch).to(dev))
+        res["ref_loss"] = float(mr["loss"])
+        d = torch.cat([(a - b).abs().flatten() for a, b in
+                       zip(after, ref.parameters())])
+        ulps = torch.cat([b.detach().abs().flatten()
+                          for b in ref.parameters()]) * 2 * (
+            torch.finfo(torch.float32).eps)
+        res["param_within"] = float(
+            (d <= 1e-3 * tc.learning_rate).double().mean())
+        res["param_max_dev_lr"] = float(d.max()) / tc.learning_rate
+        res["param_all_within"] = bool(
+            (d <= 2 * tc.learning_rate + ulps).all())
+        del ref
+    del model, opt, step, local
+    torch.cuda.empty_cache()
+
+    # (c) the rate with spatial = 2 on the flagship at 512x768
+    sp = make_mesh(data=1, spatial=2)
+    rate_model = params_from_flax(params, cfg).to(dev)
+    x = img[None].astype(np.float32) / 255.0
+    with exact_math():
+        (total, _), res["rate_ms"] = timed(
+            lambda: make_sharded_rate_fn(rate_model, sp)(x))
+        res["rate"] = float(total)
+        if rank == 0:
+            with torch.no_grad():
+                res["rate_ref"] = float(rate_loss_list(x.size, rate_model(
+                    torch.from_numpy(x).to(dev)))[0])
+    res["peak_mib"] = peak_mib()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def two_rank_phase(single_g4_bytes: int):
+    """Two processes on the one card (gloo, CUDA tensors staged through
+    host memory), each running sp_worker; every check on their results.
+    Their times are two processes sharing one card.  -> rank 0's
+    results."""
+    port = free_port()
+    with tempfile.TemporaryDirectory() as out:
+        cmd = [sys.executable, os.path.abspath(__file__), "--sp-rank"]
+        procs = [subprocess.Popen(cmd + [str(r), str(port), out],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for r in range(2)]
+        try:
+            logs = [p.communicate(timeout=SP_TIMEOUT)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            tail = "\n".join(log.strip().splitlines()[-15:])
+            check(p.returncode == 0, f"rank {r} failed ({p.returncode}):\n"
+                  f"{tail}")
+        r0, r1 = (json.load(open(os.path.join(out, f"rank{r}.json")))
+                  for r in range(2))
+    S = ModelConfig().num_scales
+    for r in (r0, r1):
+        check(r["lossless"] and r["ycocg_err"] == 0,
+              f"rank {r['rank']}: the G=4 round trip is lossy")
+        check(r["encode_launches"]["rans_encode"] == 2
+              and r["decode_launches"]["rans_decode"] == 9 * S
+              and r["encode_launches"]["gmm_cdf_from_pmap"] == 0,
+              f"rank {r['rank']}: launches {r['encode_launches']} "
+              f"{r['decode_launches']}")
+        check(not any(r["step_launches"].values()), f"rank {r['rank']}: "
+              f"the DP step launched {r['step_launches']}")
+    check(r0["sha256"] == r1["sha256"], "the ranks' containers differ")
+    check(abs(r0["num_bytes"] - single_g4_bytes) <= 16, f"two ranks' G=4 "
+          f"container {r0['num_bytes']} bytes, one rank's {single_g4_bytes}")
+    check(r0["loss"] == r1["loss"], "the ranks' DP losses differ")
+    check(r0["params_sha256"] == r1["params_sha256"],
+          "the ranks' parameters differ after the DP step")
+    loss_rel = abs(r0["loss"] - r0["ref_loss"]) / abs(r0["ref_loss"])
+    check(loss_rel <= 1e-4, f"DP loss {r0['loss']} vs one rank's "
+          f"{r0['ref_loss']}")
+    check(r0["param_within"] >= 0.999 and r0["param_all_within"],
+          "DP parameters differ from the one-rank step's")
+    rate_rel = abs(r0["rate"] - r0["rate_ref"]) / abs(r0["rate_ref"])
+    check(abs(r1["rate"] - r0["rate"]) == 0 and rate_rel <= 1e-5,
+          f"spatial rate {r0['rate']} / {r1['rate']} vs one device's "
+          f"{r0['rate_ref']}")
+    print(f"two ranks on one card (gloo, staged through host memory): G=4 "
+          f"container {r0['num_bytes']} bytes on both ranks (one rank's "
+          f"{single_g4_bytes}, {r0['num_bytes'] - single_g4_bytes:+d}), "
+          f"sha256 {r0['sha256']}, lossless; DP step of paper_a "
+          f"{r0['local_batch']} a rank: loss {r0['loss']:.6f} on both ranks, "
+          f"one rank's {r0['ref_loss']:.6f} ({loss_rel:.3g} relative), "
+          f"parameters equal across ranks, against one rank's: largest "
+          f"deviation {r0['param_max_dev_lr']:.3g} lr, "
+          f"{100 * r0['param_within']:.4f} % within 1e-3 lr; spatial=2 rate "
+          f"{r0['rate']:.6f} (one device {r0['rate_ref']:.6f}, "
+          f"{rate_rel:.3g} relative)")
+    print(f"two ranks sharing one card (no scaling figure): encode "
+          f"{r0['encode_ms']:.1f} / {r1['encode_ms']:.1f} ms, decode "
+          f"{r0['decode_ms']:.1f} / {r1['decode_ms']:.1f} ms, DP step "
+          f"{r0['step_ms']:.1f} / {r1['step_ms']:.1f} ms (median of "
+          f"{SP_TIMED}; first {r0['step_ms_first']:.1f}), spatial rate "
+          f"{r0['rate_ms']:.1f} / {r1['rate_ms']:.1f} ms, peak "
+          f"{r0['peak_mib']:.0f} / {r1['peak_mib']:.0f} MiB; {card_line()}")
+    return r0
+
+
+def multi_device_phase(cfg, params, images, counters):
+    """Phase 13: the row-sharded codec on one rank of a one-rank NCCL
+    group, its kernels at K = 4 shards, then two ranks on the card.  ->
+    (sharded decode row, sharded encode row, launches on the sharded
+    path)."""
+    import torch.distributed as dist
+    initialize(f"localhost:{free_port()}", 1, 0, backend="nccl")
+    try:
+        t0 = time.perf_counter()
+        rows, codec, _ = sharded_round_trips(cfg, params, images, counters)
+        print(f"phase 13 (a) sharded round trips: "
+              f"{time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        dec_row, enc_row = sharded_kernels(codec, images["512x768"])
+        print(f"phase 13 (b) sharded kernels: {time.perf_counter() - t0:.2f} s")
+    finally:
+        dist.destroy_process_group()
+    t0 = time.perf_counter()
+    two_rank_phase(rows[SP_SHARDS]["512x768"]["num_bytes"])
+    print(f"phase 13 (c) two ranks: {time.perf_counter() - t0:.2f} s")
+    flag = rows[SP_SHARDS]["512x768"]
+    for r in (dec_row, enc_row):
+        r.update({f"g{G}_{k}": rows[G]["512x768"][k] for G in rows
+                  for k in ("encode_ms", "decode_ms", "peak_mib")})
+    launches = {"rans_decode": flag["decode_launches"]["rans_decode"],
+                "rans_encode": flag["encode_launches"]["rans_encode"],
+                "gmm_cdf_from_pmap": flag["encode_launches"][
+                    "gmm_cdf_from_pmap"] + flag["decode_launches"][
+                    "gmm_cdf_from_pmap"]}
+    return dec_row, enc_row, launches
+
+
 def build_phase():
     """Build the kernels; print and check ptxas's report, Kernel 1's
     occupancy and the saturation shortcuts."""
@@ -1957,6 +2359,9 @@ def build_phase():
 
 
 def main() -> None:
+    if sys.argv[1:2] == ["--sp-rank"]:  # one rank of phase 13's pair
+        sp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return
     print(card_line())
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -2028,6 +2433,10 @@ def main() -> None:
     lanes, wide = port_phase(cfg, params, img, odd, codec, kres, counters)
     print(f"phase 12 (lanes, float CDF, CLI, eval, flops): "
           f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    sp_dec, sp_enc, sp_launches = multi_device_phase(
+        cfg, params, {"512x768": img, "310x598": odd}, counters)
+    print(f"phase 13 (multi-device): {time.perf_counter() - t0:.2f} s")
     check("jax" not in sys.modules, "jax was imported")
     check(not any(m.startswith("llicti_tpu") for m in sys.modules),
           "the JAX package was imported")
@@ -2062,6 +2471,13 @@ def main() -> None:
                                     + batch["decode"]["gmm_cdf_from_pmap"])
     kernels[3].update(dec_row, batch_launches=batch["decode"]["rans_decode"])
     kernels[4].update(enc_row, batch_launches=batch["encode"]["rans_encode"])
+    # phase 13's sharded path (G = 4 shards, N = 128, one rank): launches
+    # over a 512x768 encode / decode, and the K = 4 launch / call
+    kernels[0]["sharded_launches"] = sp_launches["gmm_cdf_from_pmap"]
+    kernels[3].update(sharded_launches=sp_launches["rans_decode"],
+                      sharded=sp_dec)
+    kernels[4].update(sharded_launches=sp_launches["rans_encode"],
+                      sharded=sp_enc)
     # the N > 1024 variants: N = 2048's figures, each N's beside them;
     # launches over phase 12's round trips at N = 2048 and 4096
     for name, key, rep in (("rans_decode_wide", "decode",

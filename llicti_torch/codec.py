@@ -572,6 +572,9 @@ class Codec:
         self.last_slice_bits_batch: Optional[List[List[List[int]]]] = None
         self.last_ideal_bits_batch: Optional[List[List[List[float]]]] = None
         self.last_ycocg_err: Optional[int] = None
+        # a row-sharded codec's (parallel.codec_sp) exchange of its layer-0
+        # convs' boundary rows with the neighbouring ranks
+        self._halo = None
 
     # ---- host <-> card ---------------------------------------------------
     def _host(self, arr: np.ndarray) -> torch.Tensor:
@@ -633,9 +636,10 @@ class Codec:
         y_cond = y_lev[..., :c * (b + 1)].contiguous()
         seq = seq_colours(cfg)
         if seq:
-            base = self.model.band_base(y_cond, scl, b)
+            base = self.model.band_base(y_cond, scl, b, self._halo)
         else:
-            pm = coded_rows(self.model.band_params(y_cond, scl, b))
+            pm = coded_rows(self.model.band_params(y_cond, scl, b,
+                                                   self._halo))
         sch0 = sym_channel(cfg, b, 0)
         for clr in range(3):
             if seq:

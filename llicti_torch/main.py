@@ -7,9 +7,10 @@ agent registry (``LLICTIAgent`` / ``Trainer``) and the reference's
 multi-experiment sweep (``multi_agent`` / ``multi_param``, reference
 main.py:17-24): each sweep value gets its own ``exp_<v>`` experiment
 subdir and a full ``run()`` + ``finalize()``.  Runs on the CUDA card unless
-``--device cpu`` is given; ``--mesh`` (data parallelism over several
-cards) is not ported yet (ROADMAP A6) and raises, as a config's
-``num_data_shards > 1`` does in the Trainer.
+``--device cpu`` is given.  ``--mesh`` joins the process group
+(``parallel.initialize``) and trains data parallel over all its ranks:
+``torchrun --nproc_per_node=N -m llicti_torch.main CONFIG.json --mesh``
+(one process a card; alone, a mesh of one).
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import os
 from typing import List
 
 from .config import config_from_dict
+from .parallel.distributed import initialize
 from .training.trainer import Trainer
 
 # agent registry: reference configs select the agent by class name
@@ -47,12 +49,12 @@ def main(argv=None) -> None:
     ap.add_argument("--mode", default=None,
                     help="override mode (train/eval_model/...)")
     ap.add_argument("--mesh", action="store_true",
-                    help="data parallelism over several cards (not ported)")
+                    help="use all ranks of the process group (torchrun) "
+                         "as a data mesh")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if args.mesh:
-        raise NotImplementedError("--mesh: data parallelism over several "
-                                  "cards is not ported yet (ROADMAP A6)")
+        initialize(device=args.device)
 
     with open(args.config) as f:
         raw = json.load(f)
@@ -60,8 +62,8 @@ def main(argv=None) -> None:
         cfg = config_from_dict(raw_i)
         if args.mode:
             cfg = dataclasses.replace(cfg, mode=args.mode)
-        trainer = AGENTS[raw_i.get("agent", "Trainer")](cfg,
-                                                        device=args.device)
+        trainer = AGENTS[raw_i.get("agent", "Trainer")](
+            cfg, device=args.device, use_mesh=args.mesh)
         trainer.run()
         trainer.finalize()
 

@@ -124,42 +124,55 @@ class Interpolator(nn.Module):
         trunk.append(nn.Conv2d(Ch, Co, 1, groups=grps))
         self.trunk = nn.Sequential(*trunk)
 
-    def _units(self, y_cond: torch.Tensor):
-        """The conditioning bands as NCHW and this band's layer-0 specs."""
+    def _units(self, y_cond: torch.Tensor, halo=None):
+        """The conditioning bands as NCHW, this band's layer-0 specs and
+        the halo rows the bands carry a side: none without ``halo``; with
+        it, the rows its widest pad needs, from the neighbouring ranks."""
         band = y_cond.shape[-1] // self.c - 1
         if band not in self._specs:
             raise ValueError(f"{y_cond.shape[-1]} conditioning channels fit "
                              f"no band of this interpolator")
-        return y_cond.permute(0, 3, 1, 2), self._specs[band]
+        specs = self._specs[band]
+        if halo is None:
+            return y_cond.permute(0, 3, 1, 2), specs, 0
+        m = max(max(pad[2], pad[3]) for _, _, _, pad in specs)
+        return halo(y_cond, m, m).permute(0, 3, 1, 2), specs, m
 
-    def _base(self, y_cond: torch.Tensor) -> torch.Tensor:
+    def _base(self, y_cond: torch.Tensor, halo=None) -> torch.Tensor:
         """Pre-activation layer-0 sum, NCHW."""
-        x, specs = self._units(y_cond)
+        x, specs, m = self._units(y_cond, halo)
         c = self.c
         out = None
         for unit, name, _, pad in specs:
             xb = x[:, unit * c:(unit + 1) * c].contiguous()
-            o = getattr(self, name)(F.pad(xb, pad, mode="replicate"))
+            o = getattr(self, name)(_replicate(xb, pad, m))
             out = o if out is None else out + o
         return out
 
     def _quant(self, x: torch.Tensor) -> torch.Tensor:
         return ieee_div(torch.round(x * self.rndfactor), self.rndfactor)
 
-    def _base_submean(self, y_cond: torch.Tensor):
+    def _base_submean(self, y_cond: torch.Tensor, halo=None):
         """subtract_mean layer 0: each conditioning band minus its quantised
         local box mean (over the conv's kernel window of the
         replicate-padded band) before its conv.  -> (pre-activation sum
         NCHW, quantised mean of the band means NHWC), the mean to subtract
-        from the predicted band."""
-        x, specs = self._units(y_cond)
+        from the predicted band.  With ``halo`` the differences' own halo
+        rows come from a second exchange."""
+        x, specs, m = self._units(y_cond, halo)
         c = self.c
         out = mean_sum = None
         for unit, name, (kh, kw), pad in specs:
             xb = x[:, unit * c:(unit + 1) * c]
-            mn = _box_mean(F.pad(xb, pad, mode="replicate"), kh, kw)
-            o = getattr(self, name)(
-                F.pad(xb - self._quant(mn), pad, mode="replicate"))
+            mn = _box_mean(_replicate(xb, pad, m), kh, kw)
+            d = xb[:, :, m:xb.shape[2] - m] - self._quant(mn)
+            if halo is None:
+                d = F.pad(d, pad, mode="replicate")
+            else:
+                d = F.pad(halo(d.permute(0, 2, 3, 1), pad[2], pad[3])
+                          .permute(0, 3, 1, 2), pad[:2] + (0, 0),
+                          mode="replicate")
+            o = getattr(self, name)(d)
             out = o if out is None else out + o
             mean_sum = mn if mean_sum is None else mean_sum + mn
         mean = self._quant(ieee_div(mean_sum, len(specs)))
@@ -170,15 +183,17 @@ class Interpolator(nn.Module):
         h = self.trunk(self.act0(base))
         return h.permute(0, 2, 3, 1).contiguous()
 
-    def get_params(self, y_cond: torch.Tensor) -> torch.Tensor:
+    def get_params(self, y_cond: torch.Tensor, halo=None) -> torch.Tensor:
         """Conditioning bands ``[B, H, W, c*(band+1)]`` -> GMM parameter map
-        ``[B, H, W, Co]`` (contiguous)."""
-        return self._head(self._base(y_cond))
+        ``[B, H, W, Co]`` (contiguous).  ``halo``: for a rank's block of
+        rows, the exchange that gives it its neighbours' boundary rows
+        (``parallel.halo.halo_rows``); None for a whole image."""
+        return self._head(self._base(y_cond, halo))
 
-    def band_base(self, y_cond: torch.Tensor) -> torch.Tensor:
+    def band_base(self, y_cond: torch.Tensor, halo=None) -> torch.Tensor:
         """clrjnt0seqmd codec path: the pre-activation layer-0 map
         ``[B, H, W, Ch]`` (an NHWC view of an NCHW tensor)."""
-        return self._base(y_cond).permute(0, 2, 3, 1)
+        return self._base(y_cond, halo).permute(0, 2, 3, 1)
 
     def params_from_base(self, base: torch.Tensor, y_seq: torch.Tensor,
                          clr: int) -> torch.Tensor:
@@ -197,8 +212,8 @@ class Interpolator(nn.Module):
             parts[2] = parts[2] + self.seq_toCg(ys[:, 0:2].contiguous())
         return self._head(torch.cat(parts, dim=1) if clr >= 1 else b)
 
-    def forward(self, y_cond: torch.Tensor,
-                y_topred: torch.Tensor) -> torch.Tensor:
+    def forward(self, y_cond: torch.Tensor, y_topred: torch.Tensor,
+                halo=None) -> torch.Tensor:
         """Rate forward: conditioning bands and the band to predict
         ``[B, H, W, c]`` -> its self-information map (bits), ``[B, H, W,
         3]`` for three colours, ``[B, H, W, 1]`` for one.  clrjnt0seqmd
@@ -207,13 +222,13 @@ class Interpolator(nn.Module):
         conditioning bands' local mean (and, as in the JAX package, skips
         the seqmd terms)."""
         if self.subtract_mean:
-            base, mean = self._base_submean(y_cond)
+            base, mean = self._base_submean(y_cond, halo)
             return self.self_informations(self._head(base), y_topred - mean)
         if self.seq:
-            params = self.params_from_base(self.band_base(y_cond), y_topred,
-                                           2)
+            params = self.params_from_base(self.band_base(y_cond, halo),
+                                           y_topred, 2)
         else:
-            params = self.get_params(y_cond)
+            params = self.get_params(y_cond, halo)
         return self.self_informations(params, y_topred)
 
     def self_informations(self, params: torch.Tensor,
@@ -264,6 +279,17 @@ class Interpolator(nn.Module):
         return gmm_self_information(y[..., 0:1], params[..., 0:M],
                                     params[..., M:2 * M],
                                     params[..., 2 * M:3 * M], M, logistic=lg)
+
+
+def _replicate(x: torch.Tensor, pad, m: int) -> torch.Tensor:
+    """``F.pad(x, pad, mode="replicate")`` of an NCHW band; with ``m`` > 0,
+    ``x`` carries ``m`` halo rows a side, which take the place of the row
+    pads."""
+    if not m:
+        return F.pad(x, pad, mode="replicate")
+    h = x.shape[2] - 2 * m
+    return F.pad(x[:, :, m - pad[2]:m + h + pad[3]], pad[:2] + (0, 0),
+                 mode="replicate")
 
 
 def _box_mean(x: torch.Tensor, kh: int, kw: int) -> torch.Tensor:

@@ -50,16 +50,17 @@ class LLICTIModel(nn.Module):
         bands = self.models[self.cfg.model_index[scale]]
         return bands[0] if self.cfg.combine_layers1toL else bands[band]
 
-    def band_params(self, y_cond: torch.Tensor, scale: int,
-                    band: int) -> torch.Tensor:
+    def band_params(self, y_cond: torch.Tensor, scale: int, band: int,
+                    halo=None) -> torch.Tensor:
         """GMM parameter map ``[B, H, W, Co]`` of one (scale, band) from its
-        conditioning bands ``[B, H, W, c*(band+1)]``."""
-        return self._band_model(scale, band).get_params(y_cond)
+        conditioning bands ``[B, H, W, c*(band+1)]``; ``halo`` as in
+        :meth:`forward`."""
+        return self._band_model(scale, band).get_params(y_cond, halo)
 
-    def band_base(self, y_cond: torch.Tensor, scale: int,
-                  band: int) -> torch.Tensor:
+    def band_base(self, y_cond: torch.Tensor, scale: int, band: int,
+                  halo=None) -> torch.Tensor:
         """Pre-activation layer-0 map (clrjnt0seqmd codec path)."""
-        return self._band_model(scale, band).band_base(y_cond)
+        return self._band_model(scale, band).band_base(y_cond, halo)
 
     def band_params_seq(self, base: torch.Tensor, y_seq: torch.Tensor,
                         scale: int, band: int, clr: int) -> torch.Tensor:
@@ -86,7 +87,7 @@ class LLICTIModel(nn.Module):
         return lazy_dwt(x[..., cfg.clrchs:cfg.clrchs + 1],
                         tuple(range(cfg.num_scales)))
 
-    def entropy_forward(self, y_list: List[torch.Tensor]
+    def entropy_forward(self, y_list: List[torch.Tensor], halo=None
                         ) -> List[torch.Tensor]:
         """Per scale, the self-information of bands 1..3 given the bands
         before them: ``[B, h, w, 9]`` (``[B, h, w, 3]`` for one colour),
@@ -94,14 +95,25 @@ class LLICTIModel(nn.Module):
         c = self.cfg.cond_channels
         return [torch.cat([
             self._band_model(s, b)(y_lev[..., :c * (b + 1)],
-                                   y_lev[..., c * (b + 1):c * (b + 2)])
+                                   y_lev[..., c * (b + 1):c * (b + 2)],
+                                   halo)
             for b in range(3)], dim=-1) for s, y_lev in enumerate(y_list)]
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+    def forward(self, x: torch.Tensor, halo=None) -> List[torch.Tensor]:
         """RGB ``[B, H, W, 3]`` in [0, 1] -> the self-information maps of
         every scale, finest first (bits; their sum is the rate
-        estimate)."""
-        return self.entropy_forward(self.transform(x))
+        estimate).  ``halo``: when ``x`` is a rank's block of the images'
+        rows, the exchange of its layer-0 convs' boundary rows with the
+        neighbouring ranks (``parallel.halo.halo_rows``); the block's
+        height must then be a multiple of the coarsest stride, so that
+        the wavelet stays local (ValueError)."""
+        if halo is not None:
+            stride = 2 ** (max(self.cfg.dwtlevels) + 1)
+            if x.shape[1] % stride:
+                raise ValueError(
+                    f"a rank's block of {x.shape[1]} rows: spatial sharding "
+                    f"needs a multiple of {stride} rows a rank")
+        return self.entropy_forward(self.transform(x), halo)
 
     def aux_loss(self) -> torch.Tensor:
         """Aggregated quantile aux loss over factorized-prior bottleneck

@@ -51,6 +51,27 @@ def apply_gradients(optimizer: torch.optim.Optimizer,
     optimizer.step()
 
 
+def accumulate(model: nn.Module, batch: torch.Tensor, numel: int,
+               halo=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward of each microbatch of ``batch`` ``[acc, B, H, W, 3]``:
+    its rate over ``numel`` subpixels (a microbatch's own, or the global
+    batch's when ``batch`` is a rank's part of it, with ``halo`` the
+    rank's row exchange), its gradients summed into ``.grad``.  -> (the
+    rates' sum, the breakdowns' sum), detached."""
+    cfg = model.cfg
+    # breakdown width: 3 bands x colors (9 for clrchs=3, 3 for the
+    # single-channel clrchs<3 variants)
+    width = 9 if cfg.clrchs == 3 else 3
+    loss_sum = torch.zeros((), device=batch.device)
+    bd_sum = torch.zeros((cfg.num_scales, width), device=batch.device)
+    for xb in batch:
+        total, bd = rate_loss_list(numel, model(xb, halo))
+        total.backward()  # sums into .grad across microbatches
+        loss_sum = loss_sum + total.detach()
+        bd_sum = bd_sum + bd.detach()
+    return loss_sum, bd_sum
+
+
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                     clip_value: float = 5.0
                     ) -> Callable[[torch.Tensor], Dict[str, torch.Tensor]]:
@@ -62,21 +83,11 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     tensors (reading them waits for the step).
     """
     params = list(model.parameters())
-    cfg = model.cfg
-    # breakdown width: 3 bands x colors (9 for clrchs=3, 3 for the
-    # single-channel clrchs<3 variants)
-    width = 9 if cfg.clrchs == 3 else 3
 
     def step(batch: torch.Tensor) -> Dict[str, torch.Tensor]:
         acc = batch.shape[0]
         optimizer.zero_grad(set_to_none=True)
-        loss_sum = torch.zeros((), device=batch.device)
-        bd_sum = torch.zeros((cfg.num_scales, width), device=batch.device)
-        for xb in batch:
-            total, bd = rate_loss_list(xb.numel(), model(xb))
-            total.backward()  # sums into .grad across microbatches
-            loss_sum = loss_sum + total.detach()
-            bd_sum = bd_sum + bd.detach()
+        loss_sum, bd_sum = accumulate(model, batch, batch[0].numel())
         with torch.no_grad():
             for p in params:
                 if p.grad is not None:

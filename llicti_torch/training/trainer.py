@@ -16,9 +16,13 @@ The trainer runs on the CUDA card unless it is given ``device="cpu"``.
 It sets no process-wide cuDNN or TF32 flag: the caller's apply (PyTorch's
 defaults let cuDNN use TF32); the codec of ``eval_model`` scopes its own
 (``codec.exact_math``).  Host batches are uploaded pinned and
-``non_blocking``.  Not ported yet: data parallelism over several cards
-(``num_data_shards > 1``) and the sharded codec of ``eval_model`` (ROADMAP
-A6).
+``non_blocking``.  With a mesh (``mesh=``, ``use_mesh=True``, or a
+config's ``num_data_shards > 1``; one process a card under ``torchrun``)
+the steps are data parallel: every rank's loader builds the same global
+batch from the same seed and takes its part, the gradients are summed
+over the ranks (``parallel/train.py``), validation losses are rank 0's,
+``eval_model`` codes with the row-sharded codec, and rank 0 alone writes
+logs, checkpoints and ``results.json``.
 """
 from __future__ import annotations
 
@@ -35,6 +39,10 @@ from torch.utils.flop_counter import FlopCounterMode
 from ..codec import Codec
 from ..config import LLICTIConfig
 from ..data.dataset import EvalLoader, ImageDataset, TrainLoader
+from ..parallel.codec_sp import ShardedCodec, make_sp_mesh
+from ..parallel.distributed import broadcast_float, world_size
+from ..parallel.mesh import batch_sharding, make_mesh
+from ..parallel.train import make_parallel_train_step, shard_state
 from ..utils.checkpoint import CheckpointManager
 from ..utils.logging_utils import RateLogger, setup_logging
 from ..utils.notify import Notifier
@@ -56,7 +64,8 @@ def pad_to_multiple(x: np.ndarray, mult: int) -> np.ndarray:
 
 
 class Trainer:
-    def __init__(self, config: LLICTIConfig, device="cuda"):
+    def __init__(self, config: LLICTIConfig, device="cuda", mesh=None,
+                 use_mesh: bool = False):
         self.config = config
         cfg = config.model
         tc = config.train
@@ -65,11 +74,23 @@ class Trainer:
             raise RuntimeError(
                 "Trainer runs on the CUDA card by default and none is "
                 "available; pass device='cpu' to train on the CPU")
-        if tc.num_data_shards > 1:
-            raise NotImplementedError(
-                f"num_data_shards={tc.num_data_shards}: data parallelism "
-                "over several cards is not ported yet (ROADMAP A6)")
-        setup_logging(config.log_dir)
+        # num_data_shards > 1 asks for data parallelism over that many
+        # ranks even when the caller passed no mesh (no silent knobs)
+        if mesh is None and not use_mesh and tc.num_data_shards > 1:
+            use_mesh = True
+        if mesh is None and use_mesh:
+            data = tc.num_data_shards if tc.num_data_shards > 1 else None
+            if data is not None and world_size() != data:
+                raise RuntimeError(
+                    f"num_data_shards={data} needs a process group of "
+                    f"{data} ranks, found {world_size()}: start one process "
+                    f"a card with torchrun --nproc_per_node={data} and "
+                    "call llicti_torch.parallel.initialize()")
+            mesh = make_mesh(data=data)
+        self.mesh = mesh
+        self.is_main = mesh is None or mesh.rank == 0
+        if self.is_main:  # rank 0 alone writes the logs
+            setup_logging(config.log_dir)
         self.logger = logging.getLogger("Agent")
 
         # datasets
@@ -98,8 +119,15 @@ class Trainer:
         self.model = params_from_flax(init_params(cfg, seed=tc.seed),
                                       cfg).to(self.device).train()
         self.optimizer = make_optimizer(self.model, tc.learning_rate)
-        self.train_step = make_train_step(self.model, self.optimizer,
-                                          tc.grad_clip_value)
+        if mesh is not None:
+            shard_state(self.model, self.optimizer, mesh)
+            self.train_step = make_parallel_train_step(
+                self.model, self.optimizer, mesh, tc.grad_clip_value)
+            self.batch_cut = batch_sharding(mesh, has_acc_axis=True)
+        else:
+            self.train_step = make_train_step(self.model, self.optimizer,
+                                              tc.grad_clip_value)
+            self.batch_cut = None
         self.eval_step = make_eval_step(self.model)
 
         self.scheduler = ReduceLROnPlateau(
@@ -112,8 +140,8 @@ class Trainer:
         self.test_logger = RateLogger()
         # failure/completion notifications land in the experiment's event
         # log (SMTP transport available via Notifier fields)
-        self.notifier = Notifier(
-            event_log=os.path.join(config.log_dir, "events.jsonl"))
+        self.notifier = Notifier(event_log=os.path.join(
+            config.log_dir, "events.jsonl") if self.is_main else "")
         self.ckpt = CheckpointManager(config.checkpoint_dir)
         self.current_epoch = 0
         self.current_iteration = 0
@@ -135,6 +163,8 @@ class Trainer:
     # --- checkpointing -----------------------------------------------------
     def save_checkpoint(self, name: str = "checkpoint",
                         is_best: bool = False) -> None:
+        if not self.is_main:  # rank 0 alone writes checkpoints
+            return
         meta = {
             "epoch": self.current_epoch,
             "iteration": self.current_iteration,
@@ -240,6 +270,8 @@ class Trainer:
     def train_one_epoch(self, max_steps: Optional[int] = None) -> None:
         tc = self.config.train
         for batch in self.train_loader:
+            if self.batch_cut is not None:
+                batch = np.ascontiguousarray(self.batch_cut(batch))
             metrics = self.train_step(self.upload(batch))
             bd = metrics["breakdown"].cpu().numpy()
             self.train_logger(bd)
@@ -268,6 +300,8 @@ class Trainer:
             self.valid_logger(bd.cpu().numpy())
         loss, _ = self.valid_logger.display(typ="va",
                                             epoch=self.current_epoch)
+        if self.mesh is not None:  # one schedule on every rank
+            loss = broadcast_float(loss)
         new_lr = self.scheduler.step(loss)
         if abs(new_lr - get_learning_rate(self.optimizer)) > 1e-12:
             set_learning_rate(self.optimizer, new_lr)
@@ -298,13 +332,21 @@ class Trainer:
         check and the encode / decode wall times; the rate table of the
         test set, and ``results.json`` in ``out_dir`` with the JAX
         package's keys.  The codec takes Kernel 1's tables (the JAX
-        trainer's codec keeps ``use_pallas_cdf=False``).  The JAX package's
-        spatially sharded codec over a multi-device mesh is not ported
-        (ROADMAP A6)."""
+        trainer's codec keeps ``use_pallas_cdf=False``).  With a mesh of
+        more than one rank, a configuration the sharded codec codes goes
+        through the row-sharded codec (one shard a rank, lanes // G lanes
+        a shard, at least 32), as the JAX trainer's does; every rank codes
+        and rank 0 writes ``results.json``."""
         cfg = self.config.model
         lanes = 512 if self.device.type == "cuda" else 64
-        codec = Codec(cfg, flax_from_state_dict(self.model.state_dict(), cfg),
-                      device=self.device, num_lanes=lanes)
+        params = flax_from_state_dict(self.model.state_dict(), cfg)
+        if (self.mesh is not None and self.mesh.size > 1
+                and ShardedCodec.supports(cfg)):
+            sp = make_sp_mesh()
+            codec = ShardedCodec(cfg, params, mesh=sp, device=self.device,
+                                 num_lanes=max(32, lanes // sp.G))
+        else:
+            codec = Codec(cfg, params, device=self.device, num_lanes=lanes)
         mult = 2 ** (max(cfg.dwtlevels) + 1)
         results = []
         for idx, img in enumerate(self.test_loader.iter_uint8()):
@@ -358,7 +400,7 @@ class Trainer:
         self.test_logger.display(typ="te")
         # results.json for tools/results_parser.py (reference
         # experiments/results_parser.py expects rate/dist per exp dir)
-        if results:
+        if results and self.is_main:
             os.makedirs(self.config.out_dir, exist_ok=True)
             summary = {
                 "rate": float(np.mean([r["bpsp"] for r in results])),

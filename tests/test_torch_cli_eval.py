@@ -253,8 +253,11 @@ def test_runner_sweep_makes_one_experiment_per_value(tmp_path):
         assert (d / "logs" / "exp_debug.log").exists()
     assert sorted(os.listdir(tmp_path / "sweep")) == ["exp_0.0005",
                                                       "exp_0.001"]
-    with pytest.raises(NotImplementedError, match="A6"):
-        runner.main([str(path), "--mesh", "--device", "cpu"])
+    # --mesh without torchrun: a data mesh of one process
+    runner.main([str(path), "--mode", "model_size", "--mesh", "--device",
+                 "cpu"])
+    assert sorted(os.listdir(tmp_path / "sweep")) == ["exp_0.0005",
+                                                      "exp_0.001"]
 
 
 def jax_dict_keys(path, func, target):

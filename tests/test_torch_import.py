@@ -1,6 +1,7 @@
 """The port runs without JAX and without the JAX package: a subprocess
 that refuses every import of jax, flax, optax, orbax and llicti_tpu
-imports llicti_torch, runs a CPU round trip and a training step, and no
+imports llicti_torch, runs a CPU round trip, a training step and a
+row-sharded round trip (two shards in one process), and no
 module of the port (nor chip_smoke.py) imports any of them."""
 import ast
 import os
@@ -71,6 +72,13 @@ m = make_train_step(model, make_optimizer(model, 1e-3))(
     torch.from_numpy(batch))
 assert np.isfinite(float(m["loss"]))
 assert float(FactorizedPrior(2).loss()) > 0
+
+from llicti_torch.parallel import ShardedCodec, make_sp_mesh
+sharded = ShardedCodec(cfg, params, mesh=make_sp_mesh(2), num_lanes=16,
+                       device="cpu")
+streams = sharded.compress(img)
+assert len(streams[1]) == 2
+assert np.array_equal(sharded.decompress(streams)[0], img)
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 print("OK")
 """
@@ -103,7 +111,9 @@ def test_static_scan_finds_no_jax_import():
     assert len(files) > 10
     names = {p.relative_to(ROOT).as_posix() for p in files}
     assert {"llicti_torch/cli.py", "llicti_torch/main.py",
-            "llicti_torch/eval_protocol.py"} <= names
+            "llicti_torch/eval_protocol.py",
+            "llicti_torch/parallel/codec_sp.py",
+            "llicti_torch/parallel/halo.py"} <= names
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]

@@ -170,7 +170,10 @@ def test_modes_not_ported_raise(tmp_path, mode, where):
 
 
 def test_data_shards_not_ported_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="A6"):
+    """num_data_shards > 1 needs a process group of that many ranks (the
+    two-process run is tests/test_torch_parallel_2proc.py); alone, the
+    Trainer raises naming torchrun."""
+    with pytest.raises(RuntimeError, match="torchrun"):
         Trainer(with_train(tiny_config(tmp_path), num_data_shards=2),
                 device="cpu")
 
