@@ -7,8 +7,8 @@ Phases, each of which raises on failure:
   1. print the card (nvidia-smi name and power limit); require CUDA;
   2. build the CUDA kernels from llicti_torch/csrc, print the build time,
      ptxas's registers / stack frame / spills of every kernel (Kernel 1's
-     instances must have no stack frame and no spills, Kernel 3's two
-     kernels no spills) and Kernel 1's
+     instances and the wide decode must have no stack frame and no
+     spills, Kernel 3's two kernels no spills) and Kernel 1's
      occupancy; check the normal mixture term's saturation shortcut
      against the full formula on every float;
   3. hold each kernel against its plain PyTorch version on the card at the
@@ -96,11 +96,14 @@ Phases, each of which raises on failure:
      own, beside the card's name and power limit;
   12. the rest of the port, each part with the launch counts set to 0
      just before it and read just after: (a) Kernels 2 and 3 above 1024
-     lanes, at N = 2048, 4096, 5000 and 16384 on the finest Y slice and the
-     45-slice chain, bit-identical to the plain versions and timed with
-     their bounds beside N = 1024's; edge tables and chains at N = 1025 and
-     16384; flagship round trips at N = 2048 and 4096, byte-exact, with
-     the wide variants' launch counts; (b) the float-CDF path
+     lanes, at each N of LANES (2048 ... 131072; 98304 decodes the slice
+     in one step, 131072 leaves lanes with no symbol) on the finest Y
+     slice and the 45-slice chain, bit-identical to the plain versions and
+     timed with their bounds beside N = 1024's; edge tables and chains at
+     N = 1025, 8192, 16385 and 131072; the wide decode on K = 8 images'
+     Y slices in one launch at N = 2048, bit-identical; flagship round
+     trips at N = 2048, 4096 and 20000, byte-exact, with the wide
+     variants' launch counts; (b) the float-CDF path
      (Codec(use_kernel_cdf=False), the JAX package's default): 512x768 and
      310x598 byte-exact with no Kernel 1 launch and 45 / 2 of Kernels 2 /
      3, num_bytes within max(0.1 %, 16 B) of JAX's 861,767, ms beside
@@ -136,7 +139,9 @@ G = 4 encode / decode, and "sharded": the K = 4 launch / call's ms,
 plain_ms, bound_ms, max_abs_err beside G = 1's and G = 4's round-trip ms
 and peak memory); rans_decode_wide and rans_encode_wide are
 Kernels 2 and 3 above 1024 lanes (N = 2048's figures, each N's under
-"lanes"); the last line is {"ok": true, "device": {...}}.
+"lanes", the decode's with its steps and us a step on the Y slice, and
+its K = 8 launch at N = 2048 as batch_*); the last line is {"ok": true,
+"device": {...}}.
 """
 from __future__ import annotations
 
@@ -836,12 +841,11 @@ def batch_carry(K: int, N: int, cap: int, dev):
             torch.zeros((K, cap), dtype=torch.int32, device=dev))
 
 
-def batched_kernel_phase(codec, imgs, kres):
-    """Kernels 2 and 3 on K images in one launch (one call) against their
-    plain versions, bit for bit: the finest Y slice of each image, and
-    Kernel 3 also on the K whole chains.  Returns the batch figures of the
-    decode and encode rows."""
-    cfg, dev, N = codec.cfg, codec.device, codec.N
+def batch_y_tables(codec, imgs):
+    """The finest Y slices of K images of one shape as the batch container
+    codes them (the batch's union Y range): (cum int32 [K, n, P], start,
+    freq and the true symbols [K, n])."""
+    cfg, dev = codec.cfg, codec.device
     K = len(imgs)
     batch = np.stack(imgs)
     minmax, _ = cmod.host_header(batch, cfg.dwtlevels)
@@ -859,28 +863,20 @@ def batched_kernel_phase(codec, imgs, kres):
         cdf_sampling_points(minv, maxv).to(dev),
         pmap.reshape(K * n, -1).contiguous(), y2, M, s0, m0, w0, upd, False,
         sch, minv)
-    cum, st, fr = cum.view(K, n, -1), st.view(K, n), fr.view(K, n)
-    P = cum.shape[-1]
     true_sym = (torch.round(y2[:, sch] * 255.0).int() - minv).view(K, n)
+    return cum.view(K, n, -1), st.view(K, n), fr.view(K, n), true_sym
 
-    # Kernel 3, the K images' Y slices in one call
-    offsets = torch.tensor([0, n], dtype=torch.int64)
-    cap = n + N
-    (_, states, cursor, buf), enc_err = chain_outputs(
-        st, fr, offsets, batch_carry(K, N, cap, dev))
-    check(enc_err == 0, f"batched Kernel 3 (K={K}, Y slice) != plain")
-    totals = cursor.tolist()
-    blobs = [rans.pack_stream_packed(buf[k, :t].cpu().numpy(),
-                                     states[k].cpu().numpy())
-             for k, t in enumerate(totals)]
-    y_ms = cuda_ms(lambda s, c, b: rans.rans_encode_chain(
-        st, fr, offsets, s, c, b), 20, lambda _: batch_carry(K, N, cap, dev))
-    y_plain = cuda_ms(lambda s, c, b: rans.rans_encode_chain_plain(
-        st, fr, offsets, s, c, b), 1, lambda _: batch_carry(K, N, cap, dev))
-    y_bnd = bound(8 * K * n + 4 * sum(totals) + 16 * K * N, 0)
 
-    # Kernel 2, the K Y slices in one launch, words zero-padded per row
-    unpacked = [rans.unpack_stream(b, N) for b in blobs]
+def batched_decode(cum, states, buf, totals, true_sym):
+    """Kernel 2 on K images' slices in one launch, words zero-padded per
+    row, against rans_decode_plain bit for bit, from the encoder's final
+    states, words and word counts; timed.  -> (max |d|, ms, plain ms,
+    bound (ms, by))."""
+    K, n, P = cum.shape
+    N, dev = states.shape[1], cum.device
+    unpacked = [rans.unpack_stream(rans.pack_stream_packed(
+        buf[k, :t].cpu().numpy(), states[k].cpu().numpy()), N)
+        for k, t in enumerate(totals)]
     W = max(w.size for _, w in unpacked)
     words = torch.zeros((K, W), dtype=torch.int32, device=dev)
     for k, (_, w) in enumerate(unpacked):
@@ -898,17 +894,47 @@ def batched_kernel_phase(codec, imgs, kres):
         outs.append((fn(cum, words, s, o), s, o))
     torch.cuda.synchronize()
     (ksy, kst, koff), (psy, pst, poff) = outs
-    dec_err = max(max_abs(ksy, psy), max_abs(kst, pst), max_abs(koff, poff))
-    check(dec_err == 0, f"batched Kernel 2 (K={K}) != plain")
-    check(torch.equal(ksy, true_sym), "batched Kernel 2 lost symbols")
-    check(koff.tolist() == totals, "batched Kernel 2 read other word counts")
-    dec_ms = cuda_ms(lambda s, o: rans.rans_decode(cum, words, s, o), 20,
-                     fresh_dec)
-    dec_plain = cuda_ms(lambda s, o: rans.rans_decode_plain(cum, words, s,
-                                                            o), 1, fresh_dec)
+    err = max(max_abs(ksy, psy), max_abs(kst, pst), max_abs(koff, poff))
+    check(err == 0, f"batched Kernel 2 (K={K}, N={N}) != plain")
+    check(torch.equal(ksy, true_sym),
+          f"batched Kernel 2 (N={N}) lost symbols")
+    check(koff.tolist() == totals,
+          f"batched Kernel 2 (N={N}) read other word counts")
+    ms = cuda_ms(lambda s, o: rans.rans_decode(cum, words, s, o), 20,
+                 fresh_dec)
+    plain = cuda_ms(lambda s, o: rans.rans_decode_plain(cum, words, s, o), 1,
+                    fresh_dec)
     searched = math.ceil(math.log2(P + 1))
-    dec_bnd = bound(4 * K * n * (searched + 1) + 4 * sum(totals)
-                    + 16 * K * N, 0)
+    bnd = bound(4 * K * n * (searched + 1) + 4 * sum(totals) + 16 * K * N,
+                0)
+    return err, ms, plain, bnd
+
+
+def batched_kernel_phase(codec, imgs, kres):
+    """Kernels 2 and 3 on K images in one launch (one call) against their
+    plain versions, bit for bit: the finest Y slice of each image, and
+    Kernel 3 also on the K whole chains.  Returns the batch figures of the
+    decode and encode rows."""
+    dev, N = codec.device, codec.N
+    K = len(imgs)
+    cum, st, fr, true_sym = batch_y_tables(codec, imgs)
+    n, P = cum.shape[1:]
+
+    # Kernel 3, the K images' Y slices in one call
+    offsets = torch.tensor([0, n], dtype=torch.int64)
+    cap = n + N
+    (_, states, cursor, buf), enc_err = chain_outputs(
+        st, fr, offsets, batch_carry(K, N, cap, dev))
+    check(enc_err == 0, f"batched Kernel 3 (K={K}, Y slice) != plain")
+    totals = cursor.tolist()
+    y_ms = cuda_ms(lambda s, c, b: rans.rans_encode_chain(
+        st, fr, offsets, s, c, b), 20, lambda _: batch_carry(K, N, cap, dev))
+    y_plain = cuda_ms(lambda s, c, b: rans.rans_encode_chain_plain(
+        st, fr, offsets, s, c, b), 1, lambda _: batch_carry(K, N, cap, dev))
+    y_bnd = bound(8 * K * n + 4 * sum(totals) + 16 * K * N, 0)
+
+    dec_err, dec_ms, dec_plain, dec_bnd = batched_decode(
+        cum, states, buf, totals, true_sym)
     clusters = rans.decode_max_clusters(N)
 
     # Kernel 3 on the K images' whole chains, one call
@@ -1614,7 +1640,12 @@ def train_phase(counters) -> None:
 
 # ---- phase 12: lanes above 1024, the float-CDF path, the CLI and eval ----
 
-LANES = (2048, 4096, 5000, 16384)  # Kernels 2 and 3 against plain at these
+# Kernels 2 and 3 against plain at these: 98304 is the finest slice's n
+# (one step), 131072 leaves lanes with no symbol
+LANES = (2048, 4096, 5000, 8192, 16384, 16385, 20000, 98304, 131072)
+EDGE_LANES = (1025, 8192, 16385, 131072)  # edge tables and chains
+TRIP_LANES = (2048, 4096, 20000)  # flagship round trips
+WIDE_BATCH_LANES = 2048  # the K = BATCH_K batched wide decode
 EVAL_SUMMARY_KEYS = {  # tools/eval_protocol.py's flush() summary
     "checkpoint", "devices", "n_images", "all_lossless", "max_abs_gap_pct",
     "max_abs_coder_gap_pct", "max_abs_gap_pct_exact_mult", "n_exact_mult",
@@ -1652,8 +1683,9 @@ def finest_y(codec, img):
 def lanes_kernels(codec, img, kres):
     """Kernel 3 on the 45-slice chain and Kernel 2 on the finest Y slice at
     each N of LANES, against the plain versions (bit-identical), timed
-    beside N = 1024's (phase 3).  -> {N: {"decode": row, "encode": row}},
-    a row (max |d|, ms, plain ms, bound ms, bound_by)."""
+    beside N = 1024's (phase 3).  -> {N: {"decode": row, "encode": row,
+    "steps": the decode's steps}}, a row (max |d|, ms, plain ms, bound ms,
+    bound_by)."""
     dev = codec.device
     cum, st0, fr0 = finest_y(codec, img)
     n, P = cum.shape
@@ -1705,9 +1737,9 @@ def lanes_kernels(codec, img, kres):
         dplain = cuda_ms(lambda sx, o: rans.rans_decode_plain(cum, words, sx,
                                                               o), 2, fresh)
         dbnd = bound(4 * n * (searched + 1) + 4 * words0 + 16 * N, 0)
-        out[N] = {"decode": (derr, dms, dplain) + dbnd,
-                  "encode": (eerr, ems, eplain) + ebnd}
         dsteps = -(-n // N)
+        out[N] = {"decode": (derr, dms, dplain) + dbnd,
+                  "encode": (eerr, ems, eplain) + ebnd, "steps": dsteps}
         clusters = rans.decode_max_clusters(N)
         check(clusters > 0, f"N={N}: no decode cluster fits on the card")
         d1, e1 = kres["decode"], kres["encode"]
@@ -1724,12 +1756,12 @@ def lanes_kernels(codec, img, kres):
 
 
 def lanes_round_trips(cfg, params, img, counters):
-    """Flagship round trips at N = 2048 and 4096, byte-exact, with the
+    """Flagship round trips at each N of TRIP_LANES, byte-exact, with the
     launch counts (the wide variants' too) set to 0 just before and read
     just after.  -> the wide launches."""
     reset_counts(counters)
     reset_wide()
-    for N in (2048, 4096):
+    for N in TRIP_LANES:
         codec = Codec(cfg, params, num_lanes=N)
         (streams, enc_ms) = timed(lambda: codec.compress(img))
         back = Codec.deserialize(Codec.serialize(streams))
@@ -1746,6 +1778,31 @@ def lanes_round_trips(cfg, params, img, counters):
           f"a wide variant was not launched: {got}")
     print(f"lanes round trips: launches {got}")
     return read_wide()
+
+
+def wide_batch_phase(cfg, params):
+    """Kernel 2 at WIDE_BATCH_LANES lanes on the finest Y slices of BATCH_K
+    images in one launch, against rans_decode_plain bit for bit; -> its
+    batch figures."""
+    N = WIDE_BATCH_LANES
+    codec = Codec(cfg, params, num_lanes=N)
+    imgs = [synthetic_image(512, 768, seed=42 + k) for k in range(BATCH_K)]
+    cum, st, fr, true_sym = batch_y_tables(codec, imgs)
+    K, n, P = cum.shape
+    states, cursor, buf = batch_carry(K, N, n + N, codec.device)
+    rans.rans_encode_chain(st, fr, torch.tensor([0, n], dtype=torch.int64),
+                           states, cursor, buf)
+    err, ms, plain, bnd = batched_decode(cum, states, buf, cursor.tolist(),
+                                         true_sym)
+    clusters = rans.decode_max_clusters(N)
+    print(f"batched wide kernel2 decode, N={N}, K={K} Y slices P={P} n={n}: "
+          f"identical symbols, states, offsets; {ms:.5f} ms a launch, "
+          f"{ms / K:.5f} ms an image, plain {plain:.5f} ms, bound "
+          f"{bnd[0]:.5f} ms ({bnd[1]}); the card holds {clusters} decode "
+          f"clusters at once; {card_line()}")
+    return {"batch_k": K, "batch_lanes": N, "batch_ms": ms,
+            "batch_plain_ms": plain, "batch_bound_ms": bnd[0],
+            "batch_max_abs_err": err, "max_clusters": clusters}
 
 
 def float_cdf_phase(cfg, params, images, k1_codec, counters):
@@ -1920,15 +1977,16 @@ def flops_phase(cfg, root: str) -> None:
 
 
 def port_phase(cfg, params, img, odd, codec, kres, counters):
-    """Phase 12; -> (lanes rows, wide launches)."""
+    """Phase 12; -> (lanes rows, wide batch figures, wide launches)."""
     t0 = time.perf_counter()
     rows = lanes_kernels(codec, img, kres)
     print(f"kernel2 edge cases above 1024 lanes: "
-          f"{decode_edge_phase(codec.device, (1025, 16384))} tables "
+          f"{decode_edge_phase(codec.device, EDGE_LANES)} tables "
           "bit-identical")
     print(f"kernel3 edge cases above 1024 lanes: "
-          f"{encode_edge_phase(codec.device, (1025, 16384))} chains "
+          f"{encode_edge_phase(codec.device, EDGE_LANES)} chains "
           "bit-identical and round-tripped")
+    batch = wide_batch_phase(cfg, params)
     wide = lanes_round_trips(cfg, params, img, counters)
     print(f"phase 12 (a) lanes: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
@@ -1945,7 +2003,7 @@ def port_phase(cfg, params, img, odd, codec, kres, counters):
         t0 = time.perf_counter()
         flops_phase(cfg, root)
         print(f"phase 12 (e) flops: {time.perf_counter() - t0:.2f} s")
-    return rows, wide
+    return rows, batch, wide
 
 
 # ---- phase 13: multi-device: the row-sharded codec, DP and spatial ------
@@ -2346,6 +2404,11 @@ def build_phase():
     check(len(k3) == 2, f"{len(k3)} Kernel 3 kernels, expected 2")
     check(all(r["spill_stores"] == 0 and r["spill_loads"] == 0 for r in k3),
           "a Kernel 3 kernel spills")
+    wide = [r for r in table if "rans_decode_wide_kernel" in r["kernel"]]
+    check(len(wide) == 1, f"{len(wide)} wide decode kernels, expected 1")
+    check(all(r["stack"] == 0 and r["spill_stores"] == 0
+              and r["spill_loads"] == 0 for r in wide),
+          "the wide decode kernel has a stack frame or spills")
     for M in (5, 10):
         for logistic in (False, True):
             blocks, threads = cdf.pmap_occupancy(M, logistic)
@@ -2430,7 +2493,8 @@ def main() -> None:
     train_phase(dict(counters, gmm_cdf_table_int32=cdf.gmm_cdf_table_int32))
     print(f"training phase: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    lanes, wide = port_phase(cfg, params, img, odd, codec, kres, counters)
+    lanes, wide_batch, wide = port_phase(cfg, params, img, odd, codec, kres,
+                                         counters)
     print(f"phase 12 (lanes, float CDF, CLI, eval, flops): "
           f"{time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
@@ -2479,7 +2543,7 @@ def main() -> None:
     kernels[4].update(sharded_launches=sp_launches["rans_encode"],
                       sharded=sp_enc)
     # the N > 1024 variants: N = 2048's figures, each N's beside them;
-    # launches over phase 12's round trips at N = 2048 and 4096
+    # launches over phase 12's round trips at TRIP_LANES
     for name, key, rep in (("rans_decode_wide", "decode",
                             "llicti_tpu/coder/rans_device.py:231"),
                            ("rans_encode_wide", "encode",
@@ -2493,7 +2557,14 @@ def main() -> None:
             "plain_ms": r[2], "bound_ms": r[3], "bound_by": r[4],
             "library_ms": None, "lanes": {
                 str(N): {"ms": lanes[N][key][1], "plain_ms": lanes[N][key][2],
-                         "bound_ms": lanes[N][key][3]} for N in LANES}})
+                         "bound_ms": lanes[N][key][3],
+                         "max_abs_err": lanes[N][key][0]}
+                for N in LANES}})
+    for N in LANES:  # the decode's steps and time a step on the Y slice
+        kernels[-2]["lanes"][str(N)].update(
+            steps=lanes[N]["steps"],
+            us_a_step=1e3 * lanes[N]["decode"][1] / lanes[N]["steps"])
+    kernels[-2].update(wide_batch)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

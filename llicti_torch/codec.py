@@ -75,7 +75,7 @@ import numpy as np
 import torch
 
 from .coder import range_coder
-from .coder.rans import (MAX_LANES, RANS_L, pack_stream_packed, rans_decode,
+from .coder.rans import (RANS_L, pack_stream_packed, rans_decode,
                          rans_encode_chain, unpack_stream)
 from .config import ModelConfig
 from .models.interpolator import seq_colours
@@ -475,15 +475,16 @@ class Codec:
     :func:`llicti_torch.weights.init_params` give them).
     ``device`` is the CUDA card unless the caller asks for ``"cpu"``;
     without a card, a CUDA codec raises rather than falling back.
-    ``num_lanes`` (1..16384) is an encoder/decoder-matched parameter: the
-    container does not record it, nor ``use_kernel_cdf`` (True: the CDF
-    tables from Kernel 1; False: the float mixture CDF of the host
-    backend's tables in plain PyTorch on the device, quantised to int32 as
-    the JAX package's default ``use_pallas_cdf=False`` does, with no
-    Kernel 1 launch).  ``size_bucket`` (a multiple of the
-    coarsest stride, 0 for off) replicate-pads every image to bucket
-    multiples, so a ragged set of images is coded at a few padded shapes
-    (``compiled_shapes``, the JAX package's name); the decoder crops back.
+    ``num_lanes`` (any N >= 1, as in the JAX package) is an
+    encoder/decoder-matched parameter: the container does not record it,
+    nor ``use_kernel_cdf`` (True: the CDF tables from Kernel 1; False: the
+    float mixture CDF of the host backend's tables in plain PyTorch on the
+    device, quantised to int32 as the JAX package's default
+    ``use_pallas_cdf=False`` does, with no Kernel 1 launch).
+    ``size_bucket`` (a multiple of the coarsest stride, 0 for off)
+    replicate-pads every image to bucket multiples, so a ragged set of
+    images is coded at a few padded shapes (``compiled_shapes``, the JAX
+    package's name); the decoder crops back.
     ``two_stage`` splits each decode at the finest scale: scales S-1..1 run
     on the stream's first ``head_words`` words while the rest copies to
     the card on a second CUDA stream.  ``backend="host"`` codes single
@@ -535,10 +536,8 @@ class Codec:
             raise ValueError("two_stage splits the device backend's decode")
         if num_threads < 1:
             raise ValueError(f"num_threads={num_threads}: must be >= 1")
-        if not 1 <= num_lanes <= MAX_LANES:
-            raise ValueError(f"num_lanes={num_lanes}: must be in "
-                             f"1..{MAX_LANES} (the port's limit; the JAX "
-                             "package takes any N)")
+        if num_lanes < 1:
+            raise ValueError(f"num_lanes={num_lanes}: must be >= 1")
         stride = 2 ** (max(cfg.dwtlevels) + 1)
         if size_bucket < 0 or size_bucket % stride:
             raise ValueError(f"size_bucket={size_bucket}: must be a "

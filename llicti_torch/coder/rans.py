@@ -6,9 +6,10 @@ sharing one stream of 16-bit words.  Symbol i of a slice belongs to step
 i // N and lane i % N; the decoder walks steps forward and refills lanes
 in order 0..N-1, the encoder walks steps backward and emits in lane order
 N-1..0.  Slices chain through the same lane states and stream, so an
-image carries one N*4-byte state flush.  N runs from 1 to MAX_LANES
-(16384; the JAX package takes any N); above NARROW_LANES the decode
-launches its wide variant, several lanes a thread.
+image carries one N*4-byte state flush.  N is any count from 1 up, as
+in the JAX package; above NARROW_LANES the decode launches its wide
+variant (blocks of up to 1024 threads, and above 16384 lanes several
+lanes a thread).
 
 :func:`rans_decode` decodes one slice (one launch);
 :func:`rans_encode_chain` encodes an image's whole chain of slices in one
@@ -35,10 +36,11 @@ from .. import _kernels
 
 RANS_L = 1 << 16  # lower bound of the state interval
 _MASK32 = 0xFFFFFFFF
-# lanes of a decode or encode: up to NARROW_LANES the decode's cluster
-# holds one lane a thread, above it several consecutive lanes a thread
+# lanes of a decode: up to NARROW_LANES the narrow kernel, above it the
+# wide one
 NARROW_LANES = 1024
-MAX_LANES = 16384
+# the kernels hold lanes, symbol indices and word offsets in 32-bit ints
+KERNEL_LANES = 1 << 30
 MAX_SLICES = 1024  # an encode chain's offsets fit the kernels' parameters
 
 
@@ -47,9 +49,13 @@ def _check_carry(states, pos, name, batched: bool):
     if states.dtype != torch.int64 or states.dim() != 1 + batched:
         raise ValueError(f"states must be int64 "
                          f"{'[K, N]' if batched else '[N]'}")
-    if not 1 <= states.shape[-1] <= MAX_LANES:
-        raise ValueError(f"N={states.shape[-1]} lanes: the kernels take "
-                         f"1..{MAX_LANES} (the limit of the port)")
+    N = states.shape[-1]
+    if N < 1:
+        raise ValueError(f"N={N} lanes: a coder needs at least one")
+    if states.device.type == "cuda" and N > KERNEL_LANES:
+        raise ValueError(f"N={N} lanes: the CUDA kernels index lanes, "
+                         f"symbols and word offsets with 32-bit ints, so "
+                         f"they take at most {KERNEL_LANES}")
     K = states.shape[0] if batched else 1
     if K < 1 or pos.dtype != torch.int32 or pos.shape != (K,):
         raise ValueError(f"{name} must be int32 [{'K' if batched else 1}], "
@@ -160,8 +166,8 @@ rans_decode.wide_launches = 0  # those above NARROW_LANES lanes
 
 
 def decode_max_clusters(N: int) -> int:
-    """Clusters of the decode kernel at ``N`` lanes (1..MAX_LANES) that
-    the card holds at once: a batch of more images decodes in waves."""
+    """Clusters of the decode kernel at ``N`` lanes that the card holds at
+    once: a batch of more images decodes in waves."""
     clusters = ctypes.c_int(0)
     _kernels.check(_kernels.lib().llicti_rans_decode_max_clusters(
         N, ctypes.byref(clusters)), "llicti_rans_decode_max_clusters")

@@ -6,7 +6,8 @@
 // image's slices in llicti_tpu/codec.py (do_chain, rans_encode_group).
 // Coder: N lanes share one stream of 16-bit words, states live in
 // [2^16, 2^32), probabilities have 16 bits; symbol i of a slice belongs to
-// step i / N and lane i % N.
+// step i / N and lane i % N.  N is any count from 1 up, as in the JAX
+// scans.
 //
 // What bounds them on the H100: the scans are sequential in the steps.
 // Bytes are no limit (a few MB per slice); latency is.  A decode step
@@ -22,9 +23,11 @@
 // that refill, a warp ballot plus an exclusive prefix over per-warp
 // counts.  Lane states and the word offset carry from slice to slice
 // through device memory.  A batch of K images (the batch container)
-// decodes its K slices in the same launch, one cluster per image.  Above
-// 1024 lanes (up to 16384) a thread holds several consecutive lanes
-// (rans_decode_wide_kernel).
+// decodes its K slices in the same launch, one cluster per image.  Up to
+// 1024 lanes: rans_decode_kernel, a cluster of 8 blocks of at most 128
+// threads.  Above: rans_decode_wide_kernel, the same step on a cluster of
+// 16 blocks of up to 1024 threads (16384 lanes), with a two-level prefix;
+// wider still, each thread takes its lanes in chunks.
 //
 // Encode: every slice's (start, freq) is known before the first one is
 // encoded, so an image's whole chain is one call of two launches, and so
@@ -36,6 +39,7 @@
 // The design keeps all else off that chain; see "Kernel 3" below.
 //
 // Integer-only, so the results equal the JAX scans bit for bit.
+#include <climits>
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -50,11 +54,15 @@ constexpr int kMaxLanes = 1024;
 // (PERF.md): a cluster of 8 blocks, and 7 coarse entries per row.
 constexpr int kCluster = 8;
 constexpr int kCoarse = 7;
-// Above kMaxLanes lanes the decode runs rans_decode_wide_kernel: kMaxLanes
-// threads of kWideThreads a block, each holding at most kMaxPer lanes.
-constexpr int kMaxWideLanes = 16384;
-constexpr int kWideThreads = kMaxLanes / kCluster;
-constexpr int kMaxPer = kMaxWideLanes / kMaxLanes;
+// Above kMaxLanes lanes the decode runs rans_decode_wide_kernel: clusters
+// of kWideCluster blocks (non-portable: the H100 allows 16) of at most
+// kWideThreads threads.
+constexpr int kWideThreads = 1024;
+constexpr int kWideCluster = 16;
+constexpr int kWideClusterBits = kWideCluster == 16 ? 4 : 3;
+static_assert(kWideCluster == 8 || kWideCluster == 16, "a power of two");
+// Lanes, word offsets and symbol indices are 32-bit in the kernels.
+constexpr int kMaxLaneCount = 1 << 30;
 
 // Decode one slice of n symbols: cum [n, P] int32 rows, strictly
 // increasing with cum[P-1] == 2^16 (cum[0] may be > 0).
@@ -202,122 +210,176 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
   cluster.sync();
 }
 
-// The decode above kMaxLanes lanes (1024 < N <= kMaxWideLanes): the same
-// cluster of kCluster blocks, kWideThreads threads each (kMaxLanes threads
-// in all, 32 warps), and thread k of the cluster holds the R = ceil(N /
-// kMaxLanes) consecutive lanes [k R, k R + R), states in registers.  A
-// step searches the thread's R rows in lockstep, one probe level of all R
-// rows at a time (their loads are independent), with no coarse entries.
-// Refills stay in lane order 0..N-1: a thread's refills are the popcount
-// of its R need bits, prefixed over the warp by a shuffle scan and over
-// the cluster's 32 warps by the exchange of the kernel above; a thread's
-// lanes then read consecutive words, in lane order, straight from global
-// memory (zeros past the stream).  Same arguments and batch layout.
-__global__ void __cluster_dims__(kCluster, 1, 1)
-    __launch_bounds__(kWideThreads, 1)
+// The decode above kMaxLanes lanes.  Same arguments, batch layout and
+// result as rans_decode_kernel; R is the lanes a thread holds.
+//
+// What bounds it: as in the narrow kernel, a step waits on its searches'
+// dependent loads and one cluster barrier; and the loads of all the
+// lanes an SM serves queue there, so a step costs more the more lanes an
+// SM holds (on the finest Y slice: ~3.0 us at 128 lanes an SM, ~10 us at
+// 1024; PERF.md).  The kernel's first version ran 1024 threads on 8
+// SMs whatever N, each searching up to 16 rows in lockstep through ~9
+// dependent probe levels, and read its refill words from device memory
+// after the barrier: 11.6 us a step at N = 2048.  This design:
+//  * One lane a thread over 16 SMs: a cluster of C = kWideCluster blocks
+//    of B <= kWideThreads threads (N / C rounded up to whole warps), so
+//    2048 lanes run 128 threads on each of 16 SMs, the narrow kernel's
+//    load per SM.  C = 16 beat C = 8 at every N timed, 1025 to 131072
+//    (3.02 against 3.50 us a step at N = 2048, 10.0 against 16.8 at
+//    16384).  Past C *
+//    kWideThreads lanes a thread holds R lanes, one of each chunk of CT =
+//    C B consecutive lanes; a step runs its chunks in lane order as
+//    sub-steps, each with one step's work and barrier, and a chunked
+//    lane's state waits in `states` between its sub-steps (its load one
+//    sub-step ahead), so no lane count is built in.
+//  * kCoarse entries of the next sub-step's rows in registers one
+//    sub-step ahead, so the fine search spans one or two lines.
+//  * The sub-step's word window [off, off + CT) (a chunk reads at most CT
+//    words) is loaded at its start, one coalesced word a thread, and
+//    staged in shared memory before the barrier, 32-word groups dealt to
+//    the blocks in turn; a refill reads its word from the block that
+//    holds it through distributed shared memory.
+//  * A two-level prefix and one cluster barrier a sub-step: a warp's
+//    ballot count goes to shared memory and to its block's total (a
+//    shared-memory atomic); after the barrier a warp scans its block's
+//    (at most 32) warp counts and sums the totals of the blocks below it
+//    (one remote read a lane, __reduce_add_sync), so refills keep lane
+//    order 0..N-1.  Warp counts and words are double-buffered by
+//    sub-step parity; block totals rotate through three slots, the one
+//    of the sub-step before last cleared after each barrier.
+__global__ void __launch_bounds__(kWideThreads, 1)
     rans_decode_wide_kernel(const int* __restrict__ cum,
                             const int* __restrict__ words, long long n_words,
                             long long words_stride,
                             long long* __restrict__ states,
                             int* __restrict__ offset, int* __restrict__ syms,
-                            int n, int P, int N) {
-  constexpr int nwarps = kWideThreads / 32;  // per block; kCluster * 4 = 32
-  __shared__ int warp_total[2][nwarps];
-  const long long img = blockIdx.x / kCluster;
+                            int n, int P, int N, int R) {
+  __shared__ int warp_count[2][32];
+  __shared__ int block_count[3];
+  __shared__ int staged[2][kWideThreads];
+  constexpr int C = kWideCluster, cbits = kWideClusterBits;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int b = (int)cluster.block_rank();
+  const long long img = blockIdx.x >> cbits;
   cum += img * n * P;
   words += img * words_stride;
   states += img * N;
   offset += img;
   syms += img * n;
-  cg::cluster_group cluster = cg::this_cluster();
-  const int b = (int)cluster.block_rank();
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int R = (N + kMaxLanes - 1) / kMaxLanes;
-  const int l0 = (b * kWideThreads + threadIdx.x) * R;
-  unsigned x[kMaxPer];
-#pragma unroll
-  for (int r = 0; r < kMaxPer; ++r)
-    x[r] = r < R && l0 + r < N ? (unsigned)states[l0 + r] : 0u;
-  long long off = *offset;
-  const int T = (n + N - 1) / N;
-  const int levels = 32 - __clz(P);  // halvings that empty [0, P)
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int CT = C * blockDim.x;
+  const int g = b * blockDim.x + tid;  // the thread's rank in the cluster
+  const unsigned lanes_below = (1u << lane) - 1u;
+  // the window word this thread stages: group (warp C + b) of 32
+  const int jw = (((warp << cbits) + b) << 5) + lane;
+  const int nw = (int)min(n_words, (long long)INT_MAX);
+  if (tid < 3) block_count[tid] = 0;
+  __syncthreads();
 
-  for (int t = 0; t < T; ++t) {
-    const int par = t & 1;
-    const long long i0 = (long long)t * N + l0;
-    // per lane: the search's bounds as in the kernel above; hi = 0 marks a
-    // lane with no symbol this step
-    int lo[kMaxPer], hi[kMaxPer], sv[kMaxPer], nv[kMaxPer];
+  int pos[kCoarse], coarse[kCoarse];
 #pragma unroll
-    for (int r = 0; r < kMaxPer; ++r) {
-      lo[r] = 0;
-      hi[r] = r < R && l0 + r < N && i0 + r < n ? P : 0;
-      sv[r] = 0;
-      nv[r] = (int)kRansL;
+  for (int k = 0; k < kCoarse; ++k) {
+    pos[k] = (int)((long long)(k + 1) * P / (kCoarse + 1));
+    coarse[k] = 0;
+  }
+  // sub-step: lane l of the step whose first symbol is base; i = base + l
+  unsigned base = 0u;
+  int l = g;
+  bool val = l < N && l < n;
+  unsigned x = l < N ? (unsigned)states[l] : 0u;
+  if (val) {
+    const int* row = cum + (long long)l * P;
+#pragma unroll
+    for (int k = 0; k < kCoarse; ++k) coarse[k] = row[pos[k]];
+  }
+  int off = *offset;
+  const int last = R * CT - CT;  // the last chunk's first lane
+  for (int u = 0, u3 = 0; base + (unsigned)(l - g) < (unsigned)n;
+       ++u, u3 = u3 == 2 ? 0 : u3 + 1) {
+    const int par = u & 1;
+    const int word = jw < nw - off ? words[off + jw] : 0;
+    // the next sub-step: the next chunk, or the first of the next step
+    const bool wrap = l - g == last;
+    const int ln = wrap ? g : l + CT;
+    const unsigned bn = wrap ? base + (unsigned)N : base;
+    const bool valn = ln < N && bn + (unsigned)ln < (unsigned)n;
+    unsigned xnext = 0u;
+    if (R > 1 && ln < N) xnext = (unsigned)states[ln];
+    bool need = false;
+    unsigned xn = x;
+    int s = 0;
+    const int slot = (int)(x & 0xFFFFu);
+    // invariant as in rans_decode_kernel
+    int lo = 0, hi = P, sv = 0, nv = (int)kRansL;
+#pragma unroll
+    for (int k = 0; k < kCoarse; ++k)
+      if (coarse[k] <= slot) { lo = pos[k] + 1; sv = coarse[k]; }
+#pragma unroll
+    for (int k = kCoarse - 1; k >= 0; --k)
+      if (coarse[k] > slot) { hi = pos[k]; nv = coarse[k]; }
+    if (valn) {  // the next sub-step's coarse entries, in flight now
+      const int* nrow = cum + (long long)(bn + (unsigned)ln) * P;
+#pragma unroll
+      for (int k = 0; k < kCoarse; ++k) coarse[k] = nrow[pos[k]];
     }
-    const bool any = hi[0] > 0;  // lanes fill a thread from its first on
-    for (int it = 0; it < levels && any; ++it) {
-#pragma unroll
-      for (int r = 0; r < kMaxPer; ++r) {
-        if (lo[r] < hi[r]) {
-          const int mid = (lo[r] + hi[r]) >> 1;
-          const int v = cum[(i0 + r) * P + mid];
-          if (v <= (int)(x[r] & 0xFFFFu)) {
-            lo[r] = mid + 1;
-            sv[r] = v;
-          } else {
-            hi[r] = mid;
-            nv[r] = v;
-          }
-        }
+    const unsigned i = base + (unsigned)l;
+    if (val) {
+      const int* row = cum + (long long)i * P;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        const int v = row[mid];
+        if (v <= slot) { lo = mid + 1; sv = v; } else { hi = mid; nv = v; }
       }
+      s = lo - 1;
+      const unsigned start = (unsigned)sv;
+      xn = ((unsigned)nv - start) * (x >> 16) + (unsigned)slot - start;
+      need = xn < kRansL;
     }
-    // the new states (before any refill) go to x, the symbols to lo
-    unsigned need = 0u;
-#pragma unroll
-    for (int r = 0; r < kMaxPer; ++r) {
-      if (r < R && l0 + r < N && i0 + r < n) {
-        const unsigned slot = x[r] & 0xFFFFu, start = (unsigned)sv[r];
-        x[r] = ((unsigned)nv[r] - start) * (x[r] >> 16) + slot - start;
-        if (x[r] < kRansL) need |= 1u << r;
-        syms[i0 + r] = lo[r] - 1;
-      }
+    const unsigned ballot = __ballot_sync(kFull, need);
+    if (lane == 0) {
+      warp_count[par][warp] = __popc(ballot);
+      if (ballot) atomicAdd(&block_count[u3], __popc(ballot));
     }
-    const int cnt = __popc(need);
-    int incl = cnt;
+    staged[par][tid] = word;
+    cluster.sync();
+    const int wc = lane < nwarps ? warp_count[par][lane] : 0;
+    const int bc =
+        lane < C ? *cluster.map_shared_rank(&block_count[u3], lane) : 0;
+    int incl = wc;
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
       const int v = __shfl_up_sync(kFull, incl, o);
       if (lane >= o) incl += v;
     }
-    if (lane == 31) warp_total[par][warp] = incl;
-    cluster.sync();
-    int c = 0;  // lane k holds the total of the cluster's warp k
-    if (lane < kCluster * nwarps)
-      c = *cluster.map_shared_rank(&warp_total[par][lane % nwarps],
-                                   lane / nwarps);
-    int wincl = c;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int v = __shfl_up_sync(kFull, wincl, o);
-      if (lane >= o) wincl += v;
-    }
-    const int total = __shfl_sync(kFull, wincl, 31);
-    long long pos =
-        off + __shfl_sync(kFull, wincl - c, b * nwarps + warp) + incl - cnt;
-#pragma unroll
-    for (int r = 0; r < kMaxPer; ++r) {
-      if ((need >> r) & 1u) {
-        x[r] = (x[r] << 16) | (pos < n_words ? (unsigned)words[pos] : 0u);
-        ++pos;
+    const int before = __shfl_sync(kFull, incl - wc, warp) +
+                       __reduce_add_sync(kFull, lane < b ? bc : 0);
+    const int total = __reduce_add_sync(kFull, bc);
+    // the sub-step before this one is read by no block any more
+    if (tid == 0) block_count[u3 == 0 ? 2 : u3 - 1] = 0;
+    if (val) {
+      if (need) {
+        const int r = before + __popc(ballot & lanes_below);
+        const int q = r >> 5;
+        xn = (xn << 16) |
+             (unsigned)*cluster.map_shared_rank(
+                 &staged[par][((q >> cbits) << 5) | (r & 31)], q & (C - 1));
       }
+      x = xn;
+      syms[i] = s;
     }
     off += total;
+    if (R > 1) {
+      if (l < N) states[l] = (long long)x;
+      x = xnext;
+    }
+    l = ln;
+    base = bn;
+    val = valn;
   }
-#pragma unroll
-  for (int r = 0; r < kMaxPer; ++r)
-    if (r < R && l0 + r < N) states[l0 + r] = (long long)x[r];
-  if (l0 == 0) *offset = (int)off;
+  if (R == 1 && g < N) states[g] = (long long)x;
+  if (g == 0) *offset = off;
+  // no block leaves while another may still read its shared memory
   cluster.sync();
 }
 
@@ -648,40 +710,84 @@ static int decode_threads(int N) {
   return ((N + kCluster - 1) / kCluster + 31) & ~31;
 }
 
+// The wide decode's launch shape at N > kMaxLanes lanes: B threads a
+// block, R lanes a thread.
+struct WideShape {
+  int B, R;
+};
+
+static WideShape wide_shape(int N) {
+  constexpr long long most = (long long)kWideCluster * kWideThreads;
+  const long long R = (N + most - 1) / most;  // lanes a thread
+  const long long per = (N + kWideCluster * R - 1) / (kWideCluster * R);
+  return {(int)((per + 31) & ~31LL), (int)R};
+}
+
+// The launch of the wide decode for K images (grid and block unset).
+static cudaLaunchConfig_t wide_config(const WideShape& w, int K,
+                                      cudaStream_t st,
+                                      cudaLaunchAttribute* attr) {
+  if (kWideCluster > 8)  // above the portable cluster size; a host call
+    cudaFuncSetAttribute(rans_decode_wide_kernel,
+                         cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = kWideCluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(kWideCluster * K));
+  cfg.blockDim = dim3(w.B);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
 // One slice of K images: cum [K, n, P], words rows of n_words valid words
 // words_stride apart, states [K, N], offset [K], syms [K, n].
 // N <= kMaxLanes runs rans_decode_kernel, above it rans_decode_wide_kernel.
+// N above kMaxLaneCount is refused: lanes, symbols and word offsets are
+// 32-bit ints in the kernels.
 extern "C" int llicti_rans_decode(const int* cum, const int* words,
                                   long long n_words, long long words_stride,
                                   long long* states, int* offset, int* syms,
                                   int n, int P, int N, int K, void* stream) {
-  if (N < 1 || N > kMaxWideLanes || P < 2 || K < 1 || K > (1 << 20) ||
+  if (N < 1 || N > kMaxLaneCount || P < 2 || K < 1 || K > (1 << 20) ||
       n_words < 0 || words_stride < n_words)
     return (int)cudaErrorInvalidValue;
   if (n <= 0) return (int)cudaGetLastError();
   const cudaStream_t st = (cudaStream_t)stream;
-  if (N <= kMaxLanes)
+  if (N <= kMaxLanes) {
     rans_decode_kernel<<<kCluster * K, decode_threads(N), 0, st>>>(
         cum, words, n_words, words_stride, states, offset, syms, n, P, N);
-  else
-    rans_decode_wide_kernel<<<kCluster * K, kWideThreads, 0, st>>>(
-        cum, words, n_words, words_stride, states, offset, syms, n, P, N);
-  return (int)cudaGetLastError();
+    return (int)cudaGetLastError();
+  }
+  const WideShape w = wide_shape(N);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = wide_config(w, K, st, &attr);
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, rans_decode_wide_kernel, cum, words, n_words,
+                         words_stride, states, offset, syms, n, P, N, w.R);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // Clusters of the decode at N lanes that the card holds at once; a batch
 // of more images runs in waves.
 extern "C" int llicti_rans_decode_max_clusters(int N, int* clusters) {
-  if (N < 1 || N > kMaxWideLanes) return (int)cudaErrorInvalidValue;
-  const bool wide = N > kMaxLanes;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kCluster);
-  cfg.blockDim = dim3(wide ? kWideThreads : decode_threads(N));
-  // the cluster shape is the kernel's own (__cluster_dims__)
-  return (int)(wide ? cudaOccupancyMaxActiveClusters(
-                          clusters, rans_decode_wide_kernel, &cfg)
-                    : cudaOccupancyMaxActiveClusters(
-                          clusters, rans_decode_kernel, &cfg));
+  if (N < 1 || N > kMaxLaneCount) return (int)cudaErrorInvalidValue;
+  if (N <= kMaxLanes) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(kCluster);
+    cfg.blockDim = dim3(decode_threads(N));
+    // the cluster shape is the kernel's own (__cluster_dims__)
+    return (int)cudaOccupancyMaxActiveClusters(clusters, rans_decode_kernel,
+                                               &cfg);
+  }
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = wide_config(wide_shape(N), 1, 0, &attr);
+  return (int)cudaOccupancyMaxActiveClusters(clusters,
+                                             rans_decode_wide_kernel, &cfg);
 }
 
 // Scratch of K chains of G steps over N lanes, in int32 words.
@@ -701,7 +807,7 @@ extern "C" int llicti_rans_encode_chain(
     const int* starts, const int* freqs, const int* plan, int S, long long G,
     long long* states, int* cursor, int* buf, int cap, int* cursors,
     int* scratch, int N, int K, void* stream) {
-  if (N < 1 || N > kMaxWideLanes || S < 1 || S > kMaxSlices || G < 0 ||
+  if (N < 1 || N > kMaxLaneCount || S < 1 || S > kMaxSlices || G < 0 ||
       K < 1 || K > 65535)
     return (int)cudaErrorInvalidValue;
   if (G == 0) return (int)cudaGetLastError();

@@ -2,9 +2,10 @@
 JAX package.
 
 Lanes: the plain versions of Kernels 2 and 3 at N = 2048 and 1500 give
-the bytes, symbols, states and offsets of JAX's lane scans; a container at
-N = 2048 has JAX's ``Codec(use_pallas_cdf=True)`` header and its size
-within max(0.1 %, 16 B); the port refuses N > 16384.  Float CDF
+the bytes, symbols, states and offsets of JAX's lane scans, and at N =
+20000 and 70000 JAX's encode bytes; containers at N = 2048 and 20000 have
+JAX's ``Codec(use_pallas_cdf=True)`` header and their sizes within
+max(0.1 %, 16 B).  Float CDF
 (``Codec(use_kernel_cdf=False)``, JAX's ``use_pallas_cdf=False``): the
 int32 tables equal JAX's ``cdf_float_to_cum_int32(gmm_cdf_table(...))``
 or differ by one step in a counted few entries, the encoder's (start,
@@ -75,6 +76,43 @@ def test_plain_coder_above_1024_lanes_matches_jax(N):
     assert off == int(joff[0]) == W
 
 
+@pytest.mark.parametrize("N", [20000, 70000])
+def test_plain_coder_above_16384_lanes_matches_jax(N):
+    """Any N, as in the JAX package: a chain of slices shorter than N,
+    longer than N and empty (P = 33 ... 65) encoded by the port's plain
+    chain and by JAX's rans_encode_body_batch chain gives the same blob,
+    and the port's plain decode returns the symbols, the encoder's first
+    states and the word offset.  JAX's own decode is not run at these N:
+    its refill builds a [K, N, N] one-hot (rans_device.py:280-283), 1.6 GB
+    at N = 20000."""
+    rng = np.random.default_rng(N)
+    slices = []
+    for n, Lp in [(N // 3, 33), (0, 40), (N + 4321, 65)]:
+        if n:
+            cum = make_cum(rng, n, Lp, floor0=Lp == 65)
+            slices.append((cum, sample_syms(rng, cum)))
+        else:
+            slices.append((np.zeros((0, Lp), np.int32),
+                           np.zeros((0,), np.int32)))
+    blob, cursors = port_encode(slices, N)
+    st_fr = tuple((jnp.asarray(a), jnp.asarray(b)) for a, b in
+                  (start_freq(c, s) for c, s in reversed(slices)))
+    cap = sum(len(s) for _, s in slices) + N
+    buf, cursor, states = _jax_chain(
+        st_fr, jnp.full((1, N), jr.RANS_L, jnp.uint32),
+        jnp.zeros((1, cap), jnp.int32))
+    total = int(cursor[0])
+    assert total == cursors[-1]
+    assert blob == jr.pack_stream_packed(np.asarray(buf)[0][:total],
+                                         np.asarray(states)[0])
+
+    out, st, off, W = port_decode(blob, slices, N)
+    for (_, syms), got in zip(slices, out):
+        np.testing.assert_array_equal(got, syms)
+    assert (st.numpy() == jr.RANS_L).all()
+    assert off == W == total
+
+
 @pytest.fixture(scope="module")
 def tiny():
     """(port config, JAX params, the same as numpy arrays, a 32x40 image)."""
@@ -93,28 +131,19 @@ def assert_lossless(codec, img):
     return streams
 
 
-def test_container_at_2048_lanes_matches_jax(tiny):
+@pytest.mark.parametrize("N", [2048, 20000])
+def test_container_at_2048_lanes_matches_jax(tiny, N):
+    """A container at N lanes (also above the 16384 the port once
+    refused): lossless, JAX's header, its size within max(0.1 %, 16 B)."""
     cfg, params, np_params, img = tiny
     streams = assert_lossless(
-        Codec(cfg, np_params, num_lanes=2048, device="cpu"), img)
-    jstreams = JaxCodec(JaxConfig(**TINY), params, num_lanes=2048,
+        Codec(cfg, np_params, num_lanes=N, device="cpu"), img)
+    jstreams = JaxCodec(JaxConfig(**TINY), params, num_lanes=N,
                         use_pallas_cdf=True).compress(img)
     assert streams[0] == jstreams[0]
     # N lane states of 4 bytes lead the blob
-    assert len(streams[1][0]) > 4 * 2048
+    assert len(streams[1][0]) > 4 * N
     assert size_close(Codec.num_bytes(streams), JaxCodec.num_bytes(jstreams))
-
-
-def test_lanes_above_16384_raise(tiny):
-    cfg, _, np_params, _ = tiny
-    Codec(cfg, np_params, num_lanes=16384, device="cpu")
-    with pytest.raises(ValueError, match="16384"):
-        Codec(cfg, np_params, num_lanes=16385, device="cpu")
-    states = torch.full((16385,), tr.RANS_L, dtype=torch.int64)
-    with pytest.raises(ValueError, match="16384"):
-        tr.rans_decode(torch.zeros((4, 3), dtype=torch.int32),
-                       torch.zeros((8,), dtype=torch.int32), states,
-                       torch.zeros((1,), dtype=torch.int32))
 
 
 @pytest.mark.parametrize("logistic", [False, True])
