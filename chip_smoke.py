@@ -101,9 +101,12 @@ Phases, each of which raises on failure:
      slice and the 45-slice chain, bit-identical to the plain versions and
      timed with their bounds beside N = 1024's; edge tables and chains at
      N = 1025, 8192, 16385 and 131072; the wide decode on K = 8 images'
-     Y slices in one launch at N = 2048, bit-identical; flagship round
+     Y slices in one launch at N = 2048 and at N = 20000 (two lanes a
+     thread, states in device memory), bit-identical; flagship round
      trips at N = 2048, 4096 and 20000, byte-exact, with the wide
-     variants' launch counts; (b) the float-CDF path
+     variants' launch counts; K = 8 batch containers at N = 2048 and
+     20000, byte-exact, all their rANS launches wide, bytes and ms an
+     image beside N = 1024's; (b) the float-CDF path
      (Codec(use_kernel_cdf=False), the JAX package's default): 512x768 and
      310x598 byte-exact with no Kernel 1 launch and 45 / 2 of Kernels 2 /
      3, num_bytes within max(0.1 %, 16 B) of JAX's 861,767, ms beside
@@ -140,7 +143,9 @@ plain_ms, bound_ms, max_abs_err beside G = 1's and G = 4's round-trip ms
 and peak memory); rans_decode_wide and rans_encode_wide are
 Kernels 2 and 3 above 1024 lanes (N = 2048's figures, each N's under
 "lanes", the decode's with its steps and us a step on the Y slice, and
-its K = 8 launch at N = 2048 as batch_*); the last line is {"ok": true,
+its K = 8 launch at N = 2048 as batch_*, at N = 20000 under
+"wide_batch_lanes", and the K = 8 batch containers' bytes, ms an image and
+launches by N under "batch_container_lanes"); the last line is {"ok": true,
 "device": {...}}.
 """
 from __future__ import annotations
@@ -1048,7 +1053,7 @@ def serving_phase(codec, params, kres, counters):
     calls, resident closures, size_bucket and two_stage, each driven with
     the launch counts set to 0 just before it and read just after.
     Returns (the decode row's and the encode row's batch figures, per-path
-    launches)."""
+    launches, the batch container's bytes and ms an image)."""
     cfg, N = codec.cfg, codec.N
     S = cfg.num_scales
     imgs = [synthetic_image(512, 768, seed=42 + k) for k in range(BATCH_K)]
@@ -1081,6 +1086,8 @@ def serving_phase(codec, params, kres, counters):
               f"batch container: image {k} lossy")
     sizes = [len(g[0]) for g in streams[1:]]
     bpsp = Codec.num_bytes(streams) * 8 / sum(im.size for im in imgs)
+    trip = {"bytes": len(blob), "encode_ms_an_image": enc_ms / BATCH_K,
+            "decode_ms_an_image": dec_ms / BATCH_K}
     print(f"serving: batch container K={BATCH_K} 512x768: lossless, "
           f"{len(blob)} bytes ({bpsp:.4f} bpsp; blobs {sizes}), encode "
           f"{enc_ms:.2f} ms ({enc_ms / BATCH_K:.2f} an image), decode "
@@ -1202,7 +1209,7 @@ def serving_phase(codec, params, kres, counters):
           f"median of 5: two-stage {split_ms[2]:.2f} ms, fused "
           f"{fused_ms[2]:.2f} ms; phase {time.perf_counter() - t0:.2f} s")
     print(f"serving launches by path: {json.dumps(paths)}")
-    return dec_row, enc_row, paths
+    return dec_row, enc_row, paths, trip
 
 
 # the flagship container's sha256 since PR 2 (its first and last hex
@@ -1397,7 +1404,13 @@ TIMED_STEPS = 6  # optimiser steps timed after the first, per flag setting
 # a float32 gradient's relative L2 distance from the float64 one: the
 # trained weights sit near a minimum, where a gradient is a small sum of
 # large cancelling terms; on an NVIDIA H100 (700 W) the band-2 gradients
-# came 7.98e-4 from float64 (the CPU's 1.28e-4); a wrong one is O(1)
+# came 7.98e-4 from float64 (the CPU's 1.28e-4); a wrong one is O(1).
+# It stays at 1e-2: tools/grad_drift_probe.py found the drift already in
+# the gradient reaching the pmap (1.67e-4 against the CPU's 3.36e-5),
+# ahead of any conv backward (band 2's layer-0 wgrad alone, cuDNN's
+# wgrad_alg1_engine and implicit-GEMM kernels: 6.9e-7), and no
+# deterministic setting brought it within 2x the CPU's (cuDNN off
+# 1.17e-3, channels-last 5.33e-4)
 GRAD_L2_BOUND = 1e-2
 
 
@@ -1645,7 +1658,12 @@ def train_phase(counters) -> None:
 LANES = (2048, 4096, 5000, 8192, 16384, 16385, 20000, 98304, 131072)
 EDGE_LANES = (1025, 8192, 16385, 131072)  # edge tables and chains
 TRIP_LANES = (2048, 4096, 20000)  # flagship round trips
-WIDE_BATCH_LANES = 2048  # the K = BATCH_K batched wide decode
+# the K = BATCH_K batched wide decode; at 20000 two lanes a thread
+WIDE_BATCH_LANES = (2048, 20000)
+BATCH_LANES = (2048, 20000)  # K = BATCH_K batch container round trips
+# lanes of a wide decode cluster at one lane a thread (csrc/rans.cu:
+# kWideCluster blocks of kWideThreads); past it a thread takes several
+WIDE_THREAD_LANES = 16 * 1024
 EVAL_SUMMARY_KEYS = {  # tools/eval_protocol.py's flush() summary
     "checkpoint", "devices", "n_images", "all_lossless", "max_abs_gap_pct",
     "max_abs_coder_gap_pct", "max_abs_gap_pct_exact_mult", "n_exact_mult",
@@ -1781,28 +1799,91 @@ def lanes_round_trips(cfg, params, img, counters):
 
 
 def wide_batch_phase(cfg, params):
-    """Kernel 2 at WIDE_BATCH_LANES lanes on the finest Y slices of BATCH_K
-    images in one launch, against rans_decode_plain bit for bit; -> its
-    batch figures."""
-    N = WIDE_BATCH_LANES
-    codec = Codec(cfg, params, num_lanes=N)
+    """Kernel 2 at each N of WIDE_BATCH_LANES on the finest Y slices of
+    BATCH_K images in one launch (at N = 20000 a thread holds two lanes,
+    their states in device memory between sub-steps, at states + img N),
+    against rans_decode_plain bit for bit; -> {N: its batch figures}."""
+    codec = Codec(cfg, params, num_lanes=WIDE_BATCH_LANES[0])
     imgs = [synthetic_image(512, 768, seed=42 + k) for k in range(BATCH_K)]
-    cum, st, fr, true_sym = batch_y_tables(codec, imgs)
+    cum, st, fr, true_sym = batch_y_tables(codec, imgs)  # the same at any N
     K, n, P = cum.shape
-    states, cursor, buf = batch_carry(K, N, n + N, codec.device)
-    rans.rans_encode_chain(st, fr, torch.tensor([0, n], dtype=torch.int64),
-                           states, cursor, buf)
-    err, ms, plain, bnd = batched_decode(cum, states, buf, cursor.tolist(),
-                                         true_sym)
-    clusters = rans.decode_max_clusters(N)
-    print(f"batched wide kernel2 decode, N={N}, K={K} Y slices P={P} n={n}: "
-          f"identical symbols, states, offsets; {ms:.5f} ms a launch, "
-          f"{ms / K:.5f} ms an image, plain {plain:.5f} ms, bound "
-          f"{bnd[0]:.5f} ms ({bnd[1]}); the card holds {clusters} decode "
-          f"clusters at once; {card_line()}")
-    return {"batch_k": K, "batch_lanes": N, "batch_ms": ms,
-            "batch_plain_ms": plain, "batch_bound_ms": bnd[0],
-            "batch_max_abs_err": err, "max_clusters": clusters}
+    out = {}
+    for N in WIDE_BATCH_LANES:
+        states, cursor, buf = batch_carry(K, N, n + N, codec.device)
+        rans.rans_encode_chain(st, fr, torch.tensor([0, n], dtype=torch.int64),
+                               states, cursor, buf)
+        err, ms, plain, bnd = batched_decode(cum, states, buf,
+                                             cursor.tolist(), true_sym)
+        clusters = rans.decode_max_clusters(N)
+        steps, waves = -(-n // N), -(-K // clusters)
+        lanes_a_thread = -(-N // WIDE_THREAD_LANES)
+        out[N] = {"batch_k": K, "batch_lanes": N, "batch_ms": ms,
+                  "batch_plain_ms": plain, "batch_bound_ms": bnd[0],
+                  "batch_max_abs_err": err, "max_clusters": clusters}
+        first = out[WIDE_BATCH_LANES[0]]
+        if N != WIDE_BATCH_LANES[0]:  # the keys N = 2048's row had
+            out[N].update(batch_bound_by=bnd[1], steps=steps, waves=waves,
+                          lanes_a_thread=lanes_a_thread,
+                          us_a_step=1e3 * ms / steps)
+        print(f"batched wide kernel2 decode, N={N}, K={K} Y slices P={P} "
+              f"n={n}: identical symbols, states, offsets; {ms:.5f} ms a "
+              f"launch ({steps} steps, {lanes_a_thread} lane(s) a thread, "
+              f"{waves} wave(s) of the {clusters} clusters the card holds "
+              f"at once), {ms / K:.5f} ms an image, plain {plain:.5f} ms, "
+              f"bound {bnd[0]:.5f} ms ({bnd[1]}); N={WIDE_BATCH_LANES[0]}: "
+              f"{first['batch_ms']:.5f} ms, bound "
+              f"{first['batch_bound_ms']:.5f}; {card_line()}")
+    return out
+
+
+def batch_lanes_phase(cfg, params, counters, at_1024):
+    """Batch containers of BATCH_K images at each N of BATCH_LANES:
+    compress_batch -> serialize -> deserialize -> decompress_batch
+    byte-exact, with the launch counts (the wide variants' too) set to 0
+    just before each direction and read just after; bytes and ms an image
+    beside N = 1024's (``at_1024``, the serving phase's).  -> {N: figures},
+    N = 1024's among them."""
+    imgs = [synthetic_image(512, 768, seed=42 + k) for k in range(BATCH_K)]
+    S = cfg.num_scales
+    out = {1024: at_1024}
+    for N in BATCH_LANES:
+        codec = Codec(cfg, params, num_lanes=N)
+        codec.decompress_batch(codec.compress_batch(imgs))  # warm-up
+        reset_counts(counters)
+        reset_wide()
+        streams, enc_ms = timed(lambda: codec.compress_batch(imgs))
+        got = dict({name: fn.launches for name, fn in counters.items()},
+                   **read_wide())
+        check(got["rans_decode"] == 0 and 0 < got["rans_encode"] <= 2
+              and got["rans_encode_wide"] == got["rans_encode"]
+              and got["gmm_cdf_from_pmap"] > 0,
+              f"batch encode at N={N}, launches {got}: Kernel 3 at most 2, "
+              "all wide, Kernel 2 none")
+        blob = Codec.serialize(streams)
+        reset_counts(counters)
+        reset_wide()
+        outs, dec_ms = timed(lambda: codec.decompress_batch(
+            Codec.deserialize(blob)))
+        dgot = dict({name: fn.launches for name, fn in counters.items()},
+                    **read_wide())
+        check(dgot["rans_decode"] == dgot["rans_decode_wide"] == 9 * S
+              and dgot["rans_encode"] == 0,
+              f"batch decode at N={N}, launches {dgot}: the wide Kernel 2 "
+              "once a slice")
+        for k, (im, o) in enumerate(zip(imgs, outs)):
+            check(o.shape == im.shape and np.array_equal(o, im),
+                  f"batch container at N={N}: image {k} lossy")
+        out[N] = {"bytes": len(blob), "encode_ms_an_image": enc_ms / BATCH_K,
+                  "decode_ms_an_image": dec_ms / BATCH_K,
+                  "encode_launches": got, "decode_launches": dgot}
+        print(f"batch container K={BATCH_K} 512x768 at N={N}: byte-exact, "
+              f"{len(blob)} bytes (N=1024: {at_1024['bytes']}), encode "
+              f"{enc_ms / BATCH_K:.2f} ms an image (N=1024: "
+              f"{at_1024['encode_ms_an_image']:.2f}), decode "
+              f"{dec_ms / BATCH_K:.2f} ms an image (N=1024: "
+              f"{at_1024['decode_ms_an_image']:.2f}); launches encode {got} "
+              f"decode {dgot}; {card_line()}")
+    return out
 
 
 def float_cdf_phase(cfg, params, images, k1_codec, counters):
@@ -1976,8 +2057,9 @@ def flops_phase(cfg, root: str) -> None:
           f"({flops / 2e9:.2f} GMac), {ms:.1f} ms on the card")
 
 
-def port_phase(cfg, params, img, odd, codec, kres, counters):
-    """Phase 12; -> (lanes rows, wide batch figures, wide launches)."""
+def port_phase(cfg, params, img, odd, codec, kres, counters, trip):
+    """Phase 12; -> (lanes rows, wide batch figures, wide launches, batch
+    container figures by N)."""
     t0 = time.perf_counter()
     rows = lanes_kernels(codec, img, kres)
     print(f"kernel2 edge cases above 1024 lanes: "
@@ -1989,6 +2071,10 @@ def port_phase(cfg, params, img, odd, codec, kres, counters):
     batch = wide_batch_phase(cfg, params)
     wide = lanes_round_trips(cfg, params, img, counters)
     print(f"phase 12 (a) lanes: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    trips = batch_lanes_phase(cfg, params, counters, trip)
+    print(f"phase 12 (a2) batch containers above 1024 lanes: "
+          f"{time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     float_cdf_phase(cfg, params, {"512x768": img, "310x598": odd}, codec,
                     counters)
@@ -2003,7 +2089,7 @@ def port_phase(cfg, params, img, odd, codec, kres, counters):
         t0 = time.perf_counter()
         flops_phase(cfg, root)
         print(f"phase 12 (e) flops: {time.perf_counter() - t0:.2f} s")
-    return rows, batch, wide
+    return rows, batch, wide, trips
 
 
 # ---- phase 13: multi-device: the row-sharded codec, DP and spatial ------
@@ -2481,7 +2567,8 @@ def main() -> None:
     launches["gmm_cdf_from_pmap_logistic"] = logistic
     check(logistic > 0, "Kernel 1's logistic branch was not launched")
     t0 = time.perf_counter()
-    dec_row, enc_row, paths = serving_phase(codec, params, kres, counters)
+    dec_row, enc_row, paths, trip = serving_phase(codec, params, kres,
+                                                  counters)
     print(f"serving phase: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     slice_phase(codec, params, counters, {
@@ -2493,8 +2580,8 @@ def main() -> None:
     train_phase(dict(counters, gmm_cdf_table_int32=cdf.gmm_cdf_table_int32))
     print(f"training phase: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    lanes, wide_batch, wide = port_phase(cfg, params, img, odd, codec, kres,
-                                         counters)
+    lanes, wide_batch, wide, trips = port_phase(cfg, params, img, odd, codec,
+                                                kres, counters, trip)
     print(f"phase 12 (lanes, float CDF, CLI, eval, flops): "
           f"{time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
@@ -2564,7 +2651,13 @@ def main() -> None:
         kernels[-2]["lanes"][str(N)].update(
             steps=lanes[N]["steps"],
             us_a_step=1e3 * lanes[N]["decode"][1] / lanes[N]["steps"])
-    kernels[-2].update(wide_batch)
+    # the K = 8 launch at N = 2048 as batch_*, at 20000 (two lanes a
+    # thread) under wide_batch_lanes; the batch containers by N
+    kernels[-2].update(wide_batch[WIDE_BATCH_LANES[0]])
+    kernels[-2]["wide_batch_lanes"] = {str(N): wide_batch[N]
+                                       for N in WIDE_BATCH_LANES[1:]}
+    kernels[-2]["batch_container_lanes"] = {str(N): r
+                                            for N, r in trips.items()}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,6 +9,7 @@ polynomial; the sigmoid as 1 / (1 + exp(-z))) with different exp
 implementations, so an entry that lands within an ulp of a rounding tie
 can round the other way; such entries are counted and must stay rare.
 """
+import torch_helpers  # noqa: F401  (first: caps torch's threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -11,6 +11,7 @@ XLA's cost analysis at flagship width.  The runner's sweep, the eval
 protocol's summary keys (those of JAX's ``flush``) and its ONLY / SKIP /
 APPEND dedup, and the Orbax train state resumed in the port's Trainer.
 """
+import torch_helpers  # noqa: F401  (first: caps torch's threads)
 import ast
 import dataclasses
 import json

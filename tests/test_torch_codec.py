@@ -6,6 +6,7 @@ Header bytes must be equal.  The rANS streams differ only where a CDF
 entry rounds the other way (exp differs by an ulp between the two
 frameworks), so the total size must agree within max(0.1 %, 16 bytes).
 """
+import torch_helpers  # first: caps torch's threads
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -47,12 +48,10 @@ def assert_lossless(codec, img):
 
 @pytest.fixture(scope="module")
 def codecs():
-    cfg = small_cfg()
-    params = JaxModel(cfg=cfg).init(jax.random.PRNGKey(0),
-                                    jnp.zeros((1, 16, 16, 3)))
-    np_params = jax.tree.map(np.asarray, params)
-    return (Codec(cfg, np_params, num_lanes=32, device="cpu"),
-            JaxCodec(cfg, params, num_lanes=32, use_pallas_cdf=True))
+    """The port's codec and JAX's of the tiny weights, from torch_helpers."""
+    return (Codec(small_cfg(), torch_helpers.tiny_jax_params()[1],
+                  num_lanes=32, device="cpu"),
+            torch_helpers.tiny_jax_codec())
 
 
 @pytest.mark.parametrize("h,w", SIZES)

@@ -1,6 +1,7 @@
 """The port's own copies of the JAX package's configuration and synthetic
 images: the same fields, defaults, derived properties and refusals, and
 the same image bytes for the same seed."""
+import torch_helpers  # noqa: F401  (first: caps torch's threads)
 import dataclasses
 
 import numpy as np

@@ -6,6 +6,7 @@ A host container's streams[0] must equal JAX's byte for byte; its range
 streams differ only where a float CDF entry rounds the other way, so the
 total size must agree within max(0.1 %, 16 bytes).
 """
+import torch_helpers  # noqa: F401  (first: caps torch's threads)
 import numpy as np
 import pytest
 

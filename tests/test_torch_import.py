@@ -3,8 +3,8 @@ that refuses every import of jax, flax, optax, orbax and llicti_tpu
 imports llicti_torch, runs a CPU round trip, a training step and a
 row-sharded round trip (two shards in one process), and no
 module of the port (nor chip_smoke.py) imports any of them."""
+import torch_helpers  # first: caps torch's threads
 import ast
-import os
 import subprocess
 import sys
 from pathlib import Path
@@ -85,10 +85,10 @@ print("OK")
 
 
 def test_port_runs_with_jax_blocked():
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run([sys.executable, "-c",
                           _CHILD % (BLOCKED + ("llicti_tpu",),)],
-                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         cwd=ROOT, env=torch_helpers.env(PYTHONPATH=str(ROOT)),
+                         capture_output=True, text=True,
                          timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.strip().endswith("OK")

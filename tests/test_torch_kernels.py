@@ -1,5 +1,6 @@
 """The kernel build's bookkeeping, on the CPU: ptxas's -v report parsed
 into one row per kernel (the numbers chip_smoke.py prints and checks)."""
+import torch_helpers  # noqa: F401  (first: caps torch's threads)
 from llicti_torch import _kernels
 
 REPORT = """\

@@ -12,7 +12,7 @@ or differ by one step in a counted few entries, the encoder's (start,
 freq) equal JAX's lookup, and a container is within max(0.1 %, 16 B) of
 JAX's, lossless through every entry point.
 """
-import jax
+import torch_helpers  # first: caps torch's threads
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,7 +22,6 @@ from llicti_tpu.codec import Codec as JaxCodec
 from llicti_tpu.coder import rans_device as jr
 from llicti_tpu.config import ModelConfig as JaxConfig
 from llicti_tpu.data.dataset import synthetic_image
-from llicti_tpu.models.llicti import LLICTIModel as JaxModel
 from llicti_tpu.ops import gmm as jgmm
 from llicti_torch import Codec
 from llicti_torch.coder import rans as tr
@@ -32,8 +31,7 @@ from llicti_torch.ops.gmm import (cdf_float_to_cum_int32, cdf_sampling_points,
 from test_torch_rans import (_jax_chain, make_cum, port_decode, port_encode,
                              sample_syms, start_freq)
 
-TINY = dict(chs=(8, 8), evens=(4, 4), odds=(3, 3), dwtlevels=(0, 1),
-            useprevlevNN=(False, True))
+TINY = torch_helpers.TINY
 
 
 def size_close(nb, jnb):
@@ -115,10 +113,10 @@ def test_plain_coder_above_16384_lanes_matches_jax(N):
 
 @pytest.fixture(scope="module")
 def tiny():
-    """(port config, JAX params, the same as numpy arrays, a 32x40 image)."""
-    params = JaxModel(cfg=JaxConfig(**TINY)).init(jax.random.PRNGKey(0),
-                                                  jnp.zeros((1, 16, 16, 3)))
-    return (ModelConfig(**TINY), params, jax.tree.map(np.asarray, params),
+    """(port config, JAX params, the same as numpy arrays, a 32x40 image);
+    the weights from torch_helpers."""
+    params, np_params = torch_helpers.tiny_jax_params()
+    return (ModelConfig(**TINY), params, np_params,
             synthetic_image(32, 40, seed=5))
 
 

@@ -4,6 +4,7 @@ weights carried over by ``params_from_flax``.
 Tolerance for the float32 parameter maps: rtol = atol = 1e-5, since the
 two frameworks sum the conv products in different orders.
 """
+import torch_helpers  # noqa: F401  (first: caps torch's threads)
 import os
 
 import jax

@@ -1,6 +1,7 @@
 """PyTorch port vs JAX package: integer colour transform, lazy wavelet,
 pad flags and the CDF sampling grid.  Every integer stage and every copy
 must be exact."""
+import torch_helpers  # noqa: F401  (first: caps torch's threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -8,6 +8,7 @@ num_bytes within max(0.1 %, 16 B) of JAX's (a CDF entry may round the
 other way, as in test_torch_codec.py), each scale's stream bits within
 1 %, lossless.  The two-process path is tests/test_torch_parallel_2proc.py.
 """
+import torch_helpers  # noqa: F401  (first: caps torch's threads)
 import dataclasses
 import functools
 

@@ -17,6 +17,7 @@ rank; the tests read them:
     parameters on both ranks) and eval_model through the sharded codec.
 A second spawn runs the runner under torchrun with --mesh.
 """
+import torch_helpers  # first: caps torch's threads
 import json
 import os
 import socket
@@ -213,16 +214,10 @@ def _free_port():
 
 @pytest.fixture(scope="module")
 def codec_params():
-    import jax
-    import jax.numpy as jnp
-
+    """(JAX config, JAX params) of the tiny weights, from torch_helpers."""
     from llicti_tpu.config import ModelConfig
-    from llicti_tpu.models.llicti import LLICTIModel
-    cfg = ModelConfig(chs=(8, 8), evens=(4, 4), odds=(3, 3),
-                      dwtlevels=(0, 1), useprevlevNN=(False, True))
-    params = LLICTIModel(cfg=cfg).init(jax.random.PRNGKey(0),
-                                       jnp.zeros((1, 16, 16, 3)))
-    return cfg, params
+    return (ModelConfig(**torch_helpers.TINY),
+            torch_helpers.tiny_jax_params()[0])
 
 
 @pytest.fixture(scope="module")

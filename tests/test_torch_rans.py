@@ -2,6 +2,7 @@
 against the JAX package: its numpy golden model and its jitted lane scans.
 Integer-only, so everything must be exact: symbols, states, offsets and
 stream bytes."""
+import torch_helpers  # noqa: F401  (first: caps torch's threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

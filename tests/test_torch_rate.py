@@ -13,6 +13,7 @@ relative.  The JAX reference is ``model.apply`` run eagerly, as
 of it moves single pixels of random-weight maps by bits, away from the
 eager, the port's and a float64 value alike.
 """
+import torch_helpers  # noqa: F401  (first: caps torch's threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -6,15 +6,12 @@ Headers must be equal byte for byte; a blob's size within max(0.1 %, 16
 bytes) of JAX's (the CDF entries may round the other way, as in
 ``test_torch_codec.py``); every round trip lossless.
 """
-import jax
-import jax.numpy as jnp
+import torch_helpers  # first: caps torch's threads
 import numpy as np
 import pytest
 
-from llicti_tpu.codec import Codec as JaxCodec
 from llicti_tpu.config import ModelConfig
 from llicti_tpu.data.dataset import synthetic_image
-from llicti_tpu.models.llicti import LLICTIModel as JaxModel
 from llicti_torch import Codec
 from llicti_torch.coder.rans import pack_stream_packed, unpack_stream
 from llicti_torch.weights import init_params
@@ -32,16 +29,14 @@ def three_scale_cfg():
 
 @pytest.fixture(scope="module")
 def jax_params():
-    params = JaxModel(cfg=small_cfg()).init(jax.random.PRNGKey(0),
-                                            jnp.zeros((1, 16, 16, 3)))
-    return params, jax.tree.map(np.asarray, params)
+    """JAX's tiny weights, and the same as numpy arrays, from torch_helpers."""
+    return torch_helpers.tiny_jax_params()
 
 
 @pytest.fixture(scope="module")
 def codecs(jax_params):
-    params, np_params = jax_params
-    return (Codec(small_cfg(), np_params, num_lanes=32, device="cpu"),
-            JaxCodec(small_cfg(), params, num_lanes=32, use_pallas_cdf=True))
+    return (Codec(small_cfg(), jax_params[1], num_lanes=32, device="cpu"),
+            torch_helpers.tiny_jax_codec())
 
 
 @pytest.fixture(scope="module")
@@ -77,6 +72,24 @@ def test_batch_container_matches_jax(codecs):
                 t[s][i] for t in port.last_slice_bits_batch)
     outs = port.decompress_batch(Codec.deserialize(Codec.serialize(streams)))
     assert len(outs) == 2
+    for img, out in zip(imgs, outs):
+        assert out.shape == img.shape and out.dtype == np.uint8
+        np.testing.assert_array_equal(out, img)
+
+
+def test_batch_container_above_1024_lanes(jax_params):
+    """K = 2 at N = 2048 lanes (on the card the wide Kernels 2 and 3):
+    lossless, and each image's slice-bits table counts its blob's words."""
+    N = 2048
+    codec = Codec(small_cfg(), jax_params[1], num_lanes=N, device="cpu")
+    imgs = [synthetic_image(32, 40, seed=s) for s in (3, 5)]
+    streams = codec.compress_batch(imgs)
+    assert len(streams) == 3 and len(codec.last_slice_bits_batch) == 2
+    for k, table in enumerate(codec.last_slice_bits_batch):
+        blob = streams[1 + k][0]
+        assert len(blob) > 4 * N  # N lane states lead the blob
+        assert sum(sum(r) for r in table) == 16 * words_of(blob, N)
+    outs = codec.decompress_batch(Codec.deserialize(Codec.serialize(streams)))
     for img, out in zip(imgs, outs):
         assert out.shape == img.shape and out.dtype == np.uint8
         np.testing.assert_array_equal(out, img)

@@ -15,6 +15,7 @@ pixels by up to 7.57 bits away from its eager one (ROADMAP C6), so the
 one test of JAX's jitted float32 ``make_train_step`` has the looser bound
 that test states.
 """
+import torch_helpers  # noqa: F401  (first: caps torch's threads)
 import dataclasses
 import logging
 from datetime import datetime

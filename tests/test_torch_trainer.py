@@ -2,6 +2,7 @@
 checkpoint -> resume, test mode, crash handling), mirroring
 ``tests/test_trainer.py``, plus checkpoints restored bit for bit, the
 model size against the JAX package's and the eval_model / flops_est modes."""
+import torch_helpers  # noqa: F401  (first: caps torch's threads)
 import dataclasses
 import json
 import logging
