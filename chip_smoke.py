@@ -2,6 +2,8 @@
 """Smoke run of the PyTorch port (llicti_torch) on one CUDA card.
 
 Usage: python3 chip_smoke.py        (from the repository root, one GPU)
+       python3 chip_smoke.py --phase-13d   (two or more GPUs: the kernels'
+                                            build and phase 13 (d) alone)
 
 Phases, each of which raises on failure:
   1. print the card (nvidia-smi name and power limit); require CUDA;
@@ -134,7 +136,12 @@ Phases, each of which raises on failure:
      launch, equal losses and parameters on both ranks, the loss within 1e-4 relative of the
      one-rank step's and the parameters within phase 11's tolerance, and
      the spatial = 2 rate of 512x768 within 1e-5 of one device's; their
-     times are two processes sharing one card.
+     times are two processes sharing one card; (d) with two or more cards,
+     one process a card under NCCL (this script with --sp-rank R WORLD
+     PORT nccl DIR) running parts (b)-(d) of llicti_torch.parallel.dryrun:
+     the sharded codec at G = n and 2n, a data-parallel and a data n/2 x
+     spatial 2 paper_a step against one card's, the spatial = n rate; on
+     one card it says, on a line of its own, that it did not run.
 The line before the last is {"kernels": [...]}: Kernel 2's and Kernel 3's
 rows also carry the batch figures (batch_k, batch_ms, batch_plain_ms,
 batch_bound_ms, batch_launches) and phase 13's (sharded_launches over a
@@ -176,8 +183,9 @@ from llicti_torch.ops.color import rgb_int_to_ycocg_r_int
 from llicti_torch.ops.bounds import lower_bound
 from llicti_torch.ops.gmm import SCALE_BOUND_NORMAL, cdf_sampling_points
 from llicti_torch.ops.wavelet import lazy_dwt
-from llicti_torch.parallel import (ShardedCodec, batch_sharding, initialize,
-                                   make_mesh, make_parallel_train_step,
+from llicti_torch.parallel import (ShardedCodec, batch_sharding, dryrun,
+                                   initialize, make_mesh,
+                                   make_parallel_train_step,
                                    make_sharded_rate_fn, make_sp_mesh,
                                    shard_state)
 from llicti_torch.training import Trainer, make_optimizer, make_train_step
@@ -2097,12 +2105,11 @@ def port_phase(cfg, params, img, odd, codec, kres, counters, trip):
 SP_LANES = 128  # the JAX ShardedCodec's default lanes a shard
 SP_SHARDS = 4
 # the JAX package's ShardedCodec on the CPU (G fake devices, N = 128, the
-# trained weights): (G, image) -> (num_bytes, header hex)
-JAX_SP = {(4, "512x768"): (860_216, "0504100018000002000000030000"),
-          (4, "310x598"): (496_692, "05040c0013003601000056020000"),
-          (1, "512x768"): (859_058, "0501100018000002000000030000"),
-          (1, "310x598"): (421_572, "05010a0013003601000056020000")}
-SP_TIMEOUT = 600  # seconds the two-rank run may take
+# trained weights; tools/jax_sharded_reference.py --shards G): (G, image)
+# -> (num_bytes, header hex), G = 1, 2, 4 and 8; kept in the dry run,
+# whose part (b) holds the multi-card containers against them
+JAX_SP = dryrun.JAX_SP
+SP_TIMEOUT = 600  # seconds the two-rank run and phase 13 (d) may take
 SP_TIMED = 3  # data-parallel steps timed after the compared one
 
 
@@ -2260,16 +2267,27 @@ def params_digest(model) -> str:
     ).hexdigest()
 
 
-def sp_worker(rank: int, port: int, out_dir: str) -> None:
-    """One of two ranks on the same card, gloo over CUDA tensors (staged
-    through host memory): the sharded codec at G = 4, one data-parallel
-    paper_a step (rank 0 also takes the one-rank step on the same global
-    batch) and the rate with spatial = 2 (rank 0 also the one-device
-    rate).  Writes rank{rank}.json to ``out_dir``."""
+def sp_worker(rank: int, world: int, port: int, backend: str,
+              out_dir: str) -> None:
+    """One of ``world`` ranks.  Under gloo (phase 13 (c)), one of two
+    ranks on the same card, gloo over CUDA tensors (staged through host
+    memory): the sharded codec at G = 4, one data-parallel paper_a step
+    (rank 0 also takes the one-rank step on the same global batch) and
+    the rate with spatial = 2 (rank 0 also the one-device rate).  Under
+    nccl (phase 13 (d)), one rank a card: the dry run's parts (b)-(d).
+    Writes rank{rank}.json to ``out_dir``."""
     import torch.distributed as dist
-    initialize(f"localhost:{port}", 2, rank, backend="gloo", device="cuda")
-    check(dist.get_backend() == "gloo" and dist.get_world_size() == 2,
-          "the two-rank group")
+    initialize(f"localhost:{port}", world, rank, backend=backend,
+               device="cuda")
+    check(dist.get_backend() == backend and dist.get_world_size() == world,
+          f"the {world}-rank {backend} group")
+    if backend == "nccl":
+        res = dryrun.run("bcd", dryrun.full_profile(), torch.device(
+            "cuda", torch.cuda.current_device()))
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+        dist.destroy_process_group()
+        return
     dev = torch.device("cuda")
     res = {"rank": rank}
     cfg = ModelConfig()
@@ -2364,31 +2382,55 @@ def sp_worker(rank: int, port: int, out_dir: str) -> None:
     dist.destroy_process_group()
 
 
+def spawn_ranks(backend: str, world: int):
+    """``world`` processes of sp_worker under ``backend``; every rank's
+    results.  The first rank to fail, or the time limit, stops them all
+    (a rank whose peers are gone would wait in its next collective)."""
+    port = free_port()
+    with tempfile.TemporaryDirectory() as out:
+        cmd = [sys.executable, os.path.abspath(__file__), "--sp-rank"]
+        logs = [open(os.path.join(out, f"rank{r}.log"), "w+")
+                for r in range(world)]
+        procs = [subprocess.Popen(cmd + [str(r), str(world), str(port),
+                                         backend, out],
+                                  stdout=log, stderr=subprocess.STDOUT,
+                                  text=True) for r, log in enumerate(logs)]
+        end, killed = time.monotonic() + SP_TIMEOUT, set()
+        try:
+            while (any(p.poll() is None for p in procs)
+                   and not any(p.poll() for p in procs)
+                   and time.monotonic() < end):
+                time.sleep(0.5)
+        finally:
+            for r, p in enumerate(procs):
+                if p.poll() is None:
+                    p.kill()
+                    killed.add(r)
+                p.wait()
+        # every rank that failed on its own (its peers may fail in their
+        # next collective), then those stopped here
+        errors = []
+        for r in sorted(range(world), key=lambda r: r in killed):
+            logs[r].seek(0)
+            tail = "\n".join(logs[r].read().strip().splitlines()[-15:])
+            logs[r].close()
+            if procs[r].returncode != 0:
+                errors.append(
+                    f"{backend} rank {r} of {world} " + (
+                        "stopped after the time limit or a peer's failure"
+                        if r in killed else
+                        f"failed ({procs[r].returncode})") + f":\n{tail}")
+        check(not errors, "\n".join(errors))
+        return [json.load(open(os.path.join(out, f"rank{r}.json")))
+                for r in range(world)]
+
+
 def two_rank_phase(single_g4_bytes: int):
     """Two processes on the one card (gloo, CUDA tensors staged through
     host memory), each running sp_worker; every check on their results.
     Their times are two processes sharing one card.  -> rank 0's
     results."""
-    port = free_port()
-    with tempfile.TemporaryDirectory() as out:
-        cmd = [sys.executable, os.path.abspath(__file__), "--sp-rank"]
-        procs = [subprocess.Popen(cmd + [str(r), str(port), out],
-                                  stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True)
-                 for r in range(2)]
-        try:
-            logs = [p.communicate(timeout=SP_TIMEOUT)[0] for p in procs]
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        for r, (p, log) in enumerate(zip(procs, logs)):
-            tail = "\n".join(log.strip().splitlines()[-15:])
-            check(p.returncode == 0, f"rank {r} failed ({p.returncode}):\n"
-                  f"{tail}")
-        r0, r1 = (json.load(open(os.path.join(out, f"rank{r}.json")))
-                  for r in range(2))
+    r0, r1 = spawn_ranks("gloo", 2)
     S = ModelConfig().num_scales
     for r in (r0, r1):
         check(r["lossless"] and r["ycocg_err"] == 0,
@@ -2468,6 +2510,35 @@ def multi_device_phase(cfg, params, images, counters):
     return dec_row, enc_row, launches
 
 
+def multi_card_phase():
+    """Phase 13 (d): one rank a card under NCCL, each running the dry
+    run's parts (b)-(d), whose checks (the same container, losses and
+    rate on every rank among them) raise in the rank.  On one card it
+    says that it did not run.  -> rank 0's results, or None."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"phase 13 (d) needs two or more cards and did not run: "
+              f"{n} card here")
+        return None
+    t0 = time.perf_counter()
+    ranks = spawn_ranks("nccl", n)  # each rank checks its parts itself
+    r0 = ranks[0]
+    print(f"phase 13 (d), {n} cards under NCCL, one rank a card: "
+          + "; ".join(f"{k}: {v['num_bytes']} bytes (JAX "
+                      f"{v.get('jax_num_bytes')}), one process "
+                      + ("equal" if v["equal_to_one_process"] else
+                         f"{v['num_bytes'] - v['one_process_num_bytes']:+d}"
+                         " B") for k, v in r0["b"].items())
+          + f"; DP step loss {r0['c']['loss']:.6f} (one card "
+          f"{r0['c']['one_card_loss']:.6f}), {r0['d']['step']['mesh']} step "
+          f"loss {r0['d']['step']['loss']:.6f}, spatial={n} rate "
+          f"{r0['d']['rate']['rate']:.6f} (one card "
+          f"{r0['d']['rate']['one_card_rate']:.6f}); peak MiB a rank "
+          f"{[round(r['peak_mib'], 1) for r in ranks]}; "
+          f"{r0['machine']['cards']}; {time.perf_counter() - t0:.2f} s")
+    return r0
+
+
 def build_phase():
     """Build the kernels; print and check ptxas's report, Kernel 1's
     occupancy and the saturation shortcuts."""
@@ -2507,14 +2578,26 @@ def build_phase():
           "2^32 floats")
 
 
+def ok_line() -> str:
+    return json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}})
+
+
 def main() -> None:
-    if sys.argv[1:2] == ["--sp-rank"]:  # one rank of phase 13's pair
-        sp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    if sys.argv[1:2] == ["--sp-rank"]:  # one rank of phase 13 (c) or (d)
+        sp_worker(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]),
+                  sys.argv[5], sys.argv[6])
         return
     print(card_line())
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
     build_phase()
+    if sys.argv[1:2] == ["--phase-13d"]:
+        check(multi_card_phase() is not None,
+              "--phase-13d needs two or more cards")
+        print(ok_line())
+        return
 
     cfg = ModelConfig()
     params = load_npz()
@@ -2588,6 +2671,7 @@ def main() -> None:
     sp_dec, sp_enc, sp_launches = multi_device_phase(
         cfg, params, {"512x768": img, "310x598": odd}, counters)
     print(f"phase 13 (multi-device): {time.perf_counter() - t0:.2f} s")
+    multi_card_phase()
     check("jax" not in sys.modules, "jax was imported")
     check(not any(m.startswith("llicti_tpu") for m in sys.modules),
           "the JAX package was imported")
@@ -2659,9 +2743,7 @@ def main() -> None:
     kernels[-2]["batch_container_lanes"] = {str(N): r
                                             for N, r in trips.items()}
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    print(ok_line())
 
 
 if __name__ == "__main__":

@@ -20,6 +20,8 @@ import json
 import os
 from typing import List
 
+import torch.distributed as dist
+
 from .config import config_from_dict
 from .parallel.distributed import initialize
 from .training.trainer import Trainer
@@ -43,7 +45,8 @@ def sweep(raw: dict) -> List[dict]:
             for v in vals]
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> List[Trainer]:
+    """Run the config's experiments; -> their agents, after ``finalize``."""
     ap = argparse.ArgumentParser(description="LLICTI on PyTorch + CUDA")
     ap.add_argument("config", help="JSON config path")
     ap.add_argument("--mode", default=None,
@@ -53,19 +56,32 @@ def main(argv=None) -> None:
                          "as a data mesh")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    # a group joined here is left here; a caller's stays the caller's
+    own_group = args.mesh and not dist.is_initialized()
     if args.mesh:
         initialize(device=args.device)
+    try:
+        return [_run(raw_i, args) for raw_i in sweep(_read(args.config))]
+    finally:
+        if own_group and dist.is_initialized():
+            dist.destroy_process_group()
 
-    with open(args.config) as f:
-        raw = json.load(f)
-    for raw_i in sweep(raw):
-        cfg = config_from_dict(raw_i)
-        if args.mode:
-            cfg = dataclasses.replace(cfg, mode=args.mode)
-        trainer = AGENTS[raw_i.get("agent", "Trainer")](
-            cfg, device=args.device, use_mesh=args.mesh)
-        trainer.run()
-        trainer.finalize()
+
+def _read(path: str) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+def _run(raw_i: dict, args) -> Trainer:
+    """One experiment of the sweep: run, finalize; -> its agent."""
+    cfg = config_from_dict(raw_i)
+    if args.mode:
+        cfg = dataclasses.replace(cfg, mode=args.mode)
+    trainer = AGENTS[raw_i.get("agent", "Trainer")](
+        cfg, device=args.device, use_mesh=args.mesh)
+    trainer.run()
+    trainer.finalize()
+    return trainer
 
 
 if __name__ == "__main__":

@@ -50,7 +50,7 @@ from ..models.interpolator import seq_colours
 from ..ops.color import rgb_int_to_ycocg_r_int
 from .distributed import (all_gather_bytes, all_gather_rows,
                           all_reduce_minmax, all_reduce_sum, comm_device,
-                          default_device, rank, world_size)
+                          rank, world_size)
 from .halo import halo_rows
 
 
@@ -60,7 +60,6 @@ class ShardMesh(NamedTuple):
     world: int
     rank: int
     local: int            # shards on this rank: G // world
-    device: torch.device  # this rank's card (or the CPU)
     group: Optional[object]
 
 
@@ -75,8 +74,7 @@ def make_sp_mesh(shards: Optional[int] = None, group=None) -> ShardMesh:
     if G % world:
         raise ValueError(f"{G} shards do not split evenly over {world} "
                          "ranks")
-    return ShardMesh(G, world, rank(group), G // world, default_device(),
-                     group)
+    return ShardMesh(G, world, rank(group), G // world, group)
 
 
 def _refusals(cfg: ModelConfig) -> List[str]:

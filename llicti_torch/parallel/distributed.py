@@ -5,15 +5,19 @@ devices driven by one controller; here it is a ``torch.distributed``
 process group with one process a card (``torchrun --nproc_per_node=N``),
 or one process alone, which holds every shard itself.
 
-Backends: ``nccl`` when the device is CUDA, ``gloo`` on the CPU, unless
-the caller names one.  gloo has no CUDA ``all_gather``, ``send`` or
-``recv``, so under gloo every helper here copies a CUDA tensor to pinned
-host memory, runs the collective there and copies the result back (an
-explicit branch on the backend, not a fallback).  Without a process group
-(or in a group of one) every helper returns its input unchanged.
+The device is this process's card unless the caller asks for ``"cpu"``;
+without a card :func:`initialize` and :func:`default_device` raise, as
+``Codec`` and ``Trainer`` do.  Backends: ``nccl`` when the device is
+CUDA, ``gloo`` on the CPU, unless the caller names one.  gloo has no
+CUDA ``all_gather``, ``send`` or ``recv``, so under gloo every helper
+here copies a CUDA tensor to pinned host memory, runs the collective
+there and copies the result back (an explicit branch on the backend, not
+a fallback).  Without a process group (or in a group of one) every
+helper returns its input unchanged.
 """
 from __future__ import annotations
 
+import datetime
 import logging
 import os
 from typing import List, Optional, Sequence, Tuple
@@ -24,12 +28,15 @@ import torch.distributed as dist
 
 log = logging.getLogger(__name__)
 
+# how long a collective may wait for its peers before the group aborts
+TIMEOUT = datetime.timedelta(minutes=10)
+
 
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None,
                backend: Optional[str] = None,
-               device: Optional[str] = None) -> bool:
+               device: str = "cuda") -> bool:
     """Join the process group, as ``jax.distributed.initialize`` does.
 
     With arguments, ``coordinator_address`` ("host:port") is rank 0's
@@ -37,13 +44,21 @@ def initialize(coordinator_address: Optional[str] = None,
     rank; without them ``torchrun``'s environment (``RANK``,
     ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``) says the same.  With
     neither there is nothing to join: returns False, a single process.
-    ``backend`` defaults to ``nccl`` for a CUDA ``device`` (the default
-    when a card is present) and ``gloo`` on the CPU; a CUDA process
-    takes card ``LOCAL_RANK`` (or its rank modulo the cards it sees).
+    ``device`` is the card unless the caller passes "cpu"; without a
+    card RuntimeError, before any group is made.  ``backend`` defaults to
+    ``nccl`` on the card and ``gloo`` on the CPU; a CUDA process takes
+    card ``LOCAL_RANK`` (or its rank modulo the cards it sees).  A
+    collective that waits longer than :data:`TIMEOUT` for its peers
+    fails.
     Re-entry is a no-op.  Returns True when the world has more than one
     process."""
     if dist.is_initialized():
         return dist.get_world_size() > 1
+    cuda = torch.device(device).type == "cuda"
+    if cuda and not torch.cuda.is_available():
+        raise RuntimeError(
+            "initialize() joins on the CUDA card by default and none is "
+            "available; pass device='cpu' to join on the CPU (gloo)")
     if coordinator_address is not None:
         if num_processes is None or process_id is None:
             raise ValueError("coordinator_address needs num_processes and "
@@ -57,15 +72,12 @@ def initialize(coordinator_address: Optional[str] = None,
     else:
         log.debug("no process group to join; single process")
         return False
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    cuda = torch.device(device).type == "cuda"
     if backend is None:
         backend = "nccl" if cuda else "gloo"
     if cuda:
         local = int(os.environ.get("LOCAL_RANK", rank))
         torch.cuda.set_device(local % torch.cuda.device_count())
-    dist.init_process_group(backend=backend, **init)
+    dist.init_process_group(backend=backend, timeout=TIMEOUT, **init)
     return dist.get_world_size() > 1
 
 
@@ -79,12 +91,15 @@ def rank(group=None) -> int:
     return dist.get_rank(group) if dist.is_initialized() else 0
 
 
-def default_device() -> torch.device:
+def default_device(device="cuda") -> torch.device:
     """This process's card (the one :func:`initialize` selected), or the
-    CPU when there is none."""
-    if torch.cuda.is_available():
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device("cpu")
+    CPU when the caller asks for "cpu"; RuntimeError without a card."""
+    if torch.device(device).type == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA card is available; pass device='cpu' "
+                           "to run on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 def comm_device(group=None) -> torch.device:

@@ -8,7 +8,7 @@ num_bytes within max(0.1 %, 16 B) of JAX's (a CDF entry may round the
 other way, as in test_torch_codec.py), each scale's stream bits within
 1 %, lossless.  The two-process path is tests/test_torch_parallel_2proc.py.
 """
-import torch_helpers  # noqa: F401  (first: caps torch's threads)
+import torch_helpers  # first: caps torch's threads
 import dataclasses
 import functools
 
@@ -191,3 +191,98 @@ def test_refusals():
                          num_lanes=16, device="cpu")
     with pytest.raises(ValueError, match="4 shards"):
         port.decompress(other.compress(natural_image(32, 32, seed=1)))
+
+
+def test_no_silent_cpu_fallback(monkeypatch):
+    """Without a card, initialize() and default_device() raise unless the
+    caller asks for the CPU; initialize raises before any group is made.
+    With device="cpu" a group of one joins under gloo."""
+    import socket
+
+    import torch.distributed as dist
+    from llicti_torch.parallel import distributed
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    made = []
+    real_init = dist.init_process_group
+    monkeypatch.setattr(dist, "init_process_group",
+                        lambda *a, **k: made.append(k) or real_init(*a, **k))
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        distributed.initialize(f"localhost:{port}", 1, 0)
+    assert made == [] and not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        distributed.default_device()
+    assert distributed.default_device("cpu") == torch.device("cpu")
+    assert distributed.initialize(device="cpu") is False  # nothing to join
+    try:
+        assert distributed.initialize(f"localhost:{port}", 1, 0,
+                                      device="cpu") is False
+        assert [k["backend"] for k in made] == ["gloo"]
+        assert distributed.comm_device() == torch.device("cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_dryrun_part_past_its_limit_exits_naming_rank_and_part():
+    """A dry-run part that outlives its limit (a collective some ranks
+    never reach) ends the process with 124, naming the rank and part; a
+    failed check names them too."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from llicti_torch.parallel.dryrun import DryrunError, check, deadline
+    with pytest.raises(DryrunError, match="^rank 0 part q: lossy$"):
+        with deadline("q", 60):
+            check(False, "lossy")
+    root = Path(__file__).resolve().parent.parent
+    code = ("import time\n"
+            "from llicti_torch.parallel.dryrun import deadline\n"
+            "with deadline('z', 1):\n"
+            "    time.sleep(60)\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=60,
+                         env=torch_helpers.env(PYTHONPATH=str(root)))
+    assert res.returncode == 124, res.stderr[-2000:]
+    assert "rank 0 part z: no end after 1 s" in res.stderr
+
+
+def test_runner_leaves_only_the_group_it_joined(tmp_path, monkeypatch):
+    """``main --mesh`` leaves the process group it joined (NCCL warns at
+    exit about one left behind) and keeps a group its caller joined; it
+    returns its agents."""
+    import json
+    import socket
+
+    import torch.distributed as dist
+    from llicti_torch.main import main
+
+    raw = {"exp_name": "solo", "mode": "train",
+           "model": {"chs": [8, 1], "evens": [4, 4], "odds": [3, 3],
+                     "dwtlevels": [0, 1], "useprevlevNN": [False, True]},
+           "train": {"batch_size": 2, "patch_size": 32, "grad_acc_iters": 1,
+                     "loss_prnt_iters": 100, "max_epoch": 1, "seed": 7},
+           "data": {"synthetic": True, "synthetic_len": 2},
+           "experiments_root": str(tmp_path)}
+    path = tmp_path / "solo.json"
+    path.write_text(json.dumps(raw))
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    for k, v in {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                 "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}.items():
+        monkeypatch.setenv(k, v)
+    argv = [str(path), "--mesh", "--device", "cpu"]
+    agents = main(argv)
+    assert [a.current_iteration for a in agents] == [1]
+    assert agents[0].mesh.size == 1 and not dist.is_initialized()
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        main(argv)
+        assert dist.is_initialized()
+    finally:
+        dist.destroy_process_group()

@@ -14,7 +14,12 @@ rank; the tests read them:
     against JAX's ShardedCodec on 4 fake devices (streams[0] byte-equal,
     num_bytes within max(0.1 %, 16 B)), with the weights the parent made;
   * the Trainer with num_data_shards=2: two data-parallel steps (equal
-    parameters on both ranks) and eval_model through the sharded codec.
+    parameters on both ranks) and eval_model through the sharded codec;
+  * the multi-device dry run (``parallel/dryrun.py``) at tiny widths:
+    part (a), JAX's ``dryrun_multichip``, its loss and its five-scale
+    container held against JAX's by the parent; parts (b)-(e), which
+    check themselves in both ranks; and part (d)'s step with a wrong
+    halo exchange, which must fail its gradient rule.
 A second spawn runs the runner under torchrun with --mesh.
 """
 import torch_helpers  # first: caps torch's threads
@@ -105,12 +110,22 @@ def _halo_grads(group, rank, top, bottom, h):
     return mine.grad.numpy(), full.grad[:, rank * h:(rank + 1) * h].numpy()
 
 
+def _own_rows_halo(x, top, bottom, group=None):
+    """A wrong halo exchange: this rank's block padded with its own edge
+    rows (as one device pads the image's edges), not its neighbours'."""
+    import torch
+    h = x.shape[1]
+    return x[:, torch.arange(-top, h + bottom).clamp(0, h - 1)]
+
+
 def worker(rank, port, out_dir):
     import torch
 
+    from llicti_torch.parallel import mesh as mesh_module
+
     from llicti_torch.config import (DataConfig, LLICTIConfig, ModelConfig,
                                      TrainConfig)
-    from llicti_torch.parallel import (ShardedCodec, initialize,
+    from llicti_torch.parallel import (ShardedCodec, dryrun, initialize,
                                        make_mesh, make_sharded_rate_fn,
                                        make_sp_mesh)
     from llicti_torch.training.loss import rate_loss_list
@@ -179,6 +194,36 @@ def worker(rank, port, out_dir):
         codec.prepare_decode(streams)()[:, :h, :w].numpy(), out))
     res["many_equal"] = bool(np.array_equal(
         codec.decompress_many([streams])[0], out))
+
+    # the multi-device dry run at tiny widths, parts (a)-(e): each part
+    # raises DryrunError in both ranks on a failed check
+    cpu = torch.device("cpu")
+    prof = dryrun.tiny_profile()
+    dry = dryrun.run("abcde", prof, cpu)
+    a = dry["a"]
+    for k in ("loss", "params_sha256", "lossless", "codec_sha256",
+              "num_bytes", "header", "lanes", "act_bits", "ideal_bits"):
+        res["dry_" + k] = a[k]
+    res["dry_dispatches"] = [a["dispatches"]["decode"],
+                             a["dispatches"]["encode"]]
+    res["dry_b"] = json.dumps(dry["b"])
+    for part, r in (("c", dry["c"]), ("d", dry["d"]["step"])):
+        res[f"dry_{part}"] = [r["loss_rel"], r["grad_rel_l2"],
+                              r["param_within"], r["beyond_with_signal"]]
+    res["dry_rate_rel"] = dry["d"]["rate"]["rel"]
+    res["dry_e"] = [dry["e"][k]["iteration"] for k in ("train", "resume")]
+    res["dry_e_writes"] = [dry["e"][k]["checkpoint_writes"]
+                           for k in ("train", "resume")]
+    # a wrong halo: part (d)'s step must raise in both ranks
+    real = mesh_module.halo_rows
+    mesh_module.halo_rows = _own_rows_halo
+    try:
+        dryrun.steps(cpu, prof, 2)
+        res["mutant_error"] = ""
+    except dryrun.DryrunError as e:
+        res["mutant_error"] = str(e)
+    finally:
+        mesh_module.halo_rows = real
 
     # the Trainer with num_data_shards=2: two steps, then eval_model
     tcfg = LLICTIConfig(
@@ -317,6 +362,109 @@ def test_trainer_with_two_data_shards(ranks):
         assert int(r["eval_sharded_calls"]) == len(r["eval_ok"]) > 0
         assert all(r["eval_ok"])
         assert all(abs(g) < 10.0 for g in r["eval_coder_gap"])
+
+
+@pytest.mark.timeout(TIMEOUT + 60)
+def test_dryrun_part_a_on_two_ranks(ranks):
+    """JAX's dryrun_multichip(2), ported, at the dry run's tiny widths: one
+    data = 2 step of the global ``ones * 0.5`` batch, its loss within 1e-5
+    of JAX's jitted make_train_step's (3e-7 apart here), and the
+    five-scale codec at 2 shards and
+    8 lanes against JAX's ShardedCodec on 2 fake devices with the same
+    weights (streams[0] byte-equal, num_bytes within max(0.1 %, 16 B))."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    from llicti_torch.parallel import dryrun
+    from llicti_torch.weights import init_params
+    from llicti_tpu.config import ModelConfig as JaxConfig
+    from llicti_tpu.models.llicti import LLICTIModel as JaxModel
+    from llicti_tpu.parallel.codec_sp import ShardedCodec as JaxSharded
+    from llicti_tpu.parallel.codec_sp import make_sp_mesh
+    from llicti_tpu.training import steps as jsteps
+    from test_torch_model import nested
+
+    r0, r1 = ranks
+    for r in ranks:
+        assert np.isfinite(float(r["dry_loss"]))
+        assert bool(r["dry_lossless"])
+        act, ideal = float(r["dry_act_bits"]), float(r["dry_ideal_bits"])
+        assert abs(act - ideal) <= 0.01 * ideal + 32.0 * int(
+            r["dry_lanes"]) * 2
+        assert r["dry_dispatches"].tolist() == [5, 6]  # S; S + 1
+    assert float(r0["dry_loss"]) == float(r1["dry_loss"])
+    assert str(r0["dry_params_sha256"]) == str(r1["dry_params_sha256"])
+    assert str(r0["dry_codec_sha256"]) == str(r1["dry_codec_sha256"])
+
+    cfg = dryrun.tiny_profile().train_cfg
+    jcfg = JaxConfig(**dataclasses.asdict(cfg))
+    tx = jsteps.make_optimizer(1e-4)
+    params = nested(init_params(cfg, 0))
+    state = jsteps.TrainState(params, tx.init(params),
+                              jnp.zeros((), jnp.int32))
+    _, m = jax.jit(jsteps.make_train_step(JaxModel(cfg=jcfg), tx))(
+        state, jnp.full((2, 4, 64, 64, 3), 0.5, jnp.float32))
+    print(f"part (a) loss: port {float(r0['dry_loss'])}, JAX "
+          f"{float(m['loss'])}")
+    np.testing.assert_allclose(float(r0["dry_loss"]), float(m["loss"]),
+                               rtol=1e-5)
+
+    five = dryrun.FIVE_SCALES
+    ref = JaxSharded(JaxConfig(**dataclasses.asdict(five)),
+                     nested(init_params(five, 1)),
+                     mesh=make_sp_mesh(shards=2), num_lanes=8)
+    jstreams = ref.compress(dryrun.jax_image(2))
+    nb, jnb = int(r0["dry_num_bytes"]), JaxSharded.num_bytes(jstreams)
+    print(f"five-scale codec at 2 shards: port {nb} bytes, JAX {jnb}")
+    assert str(r0["dry_header"]) == jstreams[0][0].hex()
+    assert abs(nb - jnb) <= max(0.001 * jnb, 16)
+
+
+@pytest.mark.timeout(TIMEOUT + 60)
+def test_dryrun_parts_b_to_e_on_two_ranks(ranks):
+    """The dry run's parts (b)-(e) under gloo at tiny widths passed their
+    own checks in both ranks (they raise otherwise); what they saw: the
+    sharded containers at G = 2 and 4 lossless and equal to the
+    one-process container of their G, the parallel steps as close to one
+    process's as float rounding, the spatial rate equal to one
+    process's, the runner at iterations 2 and 3 with rank 0 alone
+    writing checkpoints."""
+    from llicti_torch.parallel import dryrun
+    r0, r1 = ranks
+    b0, b1 = (json.loads(str(r["dry_b"])) for r in ranks)
+    assert b0 == b1
+    assert sorted(b0) == ["G2 64x48", "G4 64x48"]
+    for row in b0.values():
+        assert row["equal_to_one_process"]
+        assert row["sha256"] == row["one_process_sha256"]
+    for r in ranks:
+        for part in ("dry_c", "dry_d"):
+            loss_rel, grad_rel_l2, within, beyond = r[part].tolist()
+            assert loss_rel <= 1e-4 and grad_rel_l2 <= dryrun.GRAD_REL_L2
+            assert within == 1.0 and beyond == 0
+        assert float(r["dry_rate_rel"]) <= 1e-5
+        assert r["dry_e"].tolist() == [2, 3]
+    for writes in r0["dry_e_writes"].tolist():
+        assert writes[0] > 0 and not any(writes[1:])
+
+
+@pytest.mark.timeout(TIMEOUT + 60)
+def test_dryrun_step_rule_fails_a_wrong_halo(ranks):
+    """A wrong halo exchange (each rank pads its block with its own rows)
+    moves the tiny step's loss by less than 1e-4, so it is the gradient
+    rule that holds a parallel step to one process's that fails part
+    (d)'s step, in both ranks and well past its bound."""
+    import re
+
+    from llicti_torch.parallel import dryrun
+    for r in ranks:
+        err = str(r["mutant_error"])
+        assert err.startswith("(1x2) gradients or parameters"), err
+        rel = float(re.search(r"'grad_rel_l2': ([^,]+),", err).group(1))
+        print(f"wrong halo: gradients {rel:.3g} relative L2 from one "
+              "process's")
+        assert rel > 100 * dryrun.GRAD_REL_L2
 
 
 @pytest.mark.timeout(TIMEOUT + 60)
