@@ -21,7 +21,7 @@ Phases, each of which raises on failure:
      on the image's whole 45-slice chain (Codec.encode_inputs) in one
      call; each kernel's bound (bytes over 3.35 TB/s or float operations
      over 67 TFLOP/s, the H100 SXM's published peaks) is computed from the
-     inputs timed;
+     inputs timed, with the work counts of bench_torch/work.py;
   3b. the rANS decode against its plain version on synthetic tables of
      P = 2 ... 513 with rows below cum[0] and at or above cum[P-2], n not a
      multiple of N, N = 1000 and 1024: random states and words, and a round
@@ -180,8 +180,7 @@ from llicti_torch.config import (DataConfig, LLICTIConfig, TrainConfig,
 from llicti_torch.data import ImageDataset, TrainLoader, load_rgb
 from llicti_torch.ops import cdf
 from llicti_torch.ops.color import rgb_int_to_ycocg_r_int
-from llicti_torch.ops.bounds import lower_bound
-from llicti_torch.ops.gmm import SCALE_BOUND_NORMAL, cdf_sampling_points
+from llicti_torch.ops.gmm import cdf_sampling_points
 from llicti_torch.ops.wavelet import lazy_dwt
 from llicti_torch.parallel import (ShardedCodec, batch_sharding, dryrun,
                                    initialize, make_mesh,
@@ -192,6 +191,11 @@ from llicti_torch.training import Trainer, make_optimizer, make_train_step
 from llicti_torch.training.loss import rate_loss_list
 from llicti_torch.utils import CheckpointManager
 from llicti_torch.weights import BENCH_PARAMS, init_params, params_from_flax
+
+from bench_torch.gates import GRAD_L2_BOUND
+from bench_torch.work import (bound, cdf_pmap_saturated, cdf_pmap_work,
+                              cdf_table_saturated, cdf_table_work,
+                              rans_decode_bytes, rans_encode_bytes)
 
 # (label, ModelConfig knobs, trained weights?, also 310x598?)
 VARIANTS = [
@@ -212,25 +216,6 @@ VARIANTS = [
     ("clrjnt2 combine_layers1toL", {"combine_layers1toL": True}, False,
      False),
 ]
-
-
-# H100 SXM published peaks: HBM3 bandwidth, dense FP32 rate
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12
-# float operations of one mixture term: the normal one in full and with
-# its saturation shortcut taken (z, the add; cdf.cuh); the logistic one
-NORMAL_OPS, NORMAL_SAT_OPS = 24, 4
-LOGISTIC_OPS = 8
-ENTRY_OPS = 3  # clamp, scale, round of each table entry
-# Kernel 4 lies on no codec path; Kernel 1 runs once per colour slice in
-# each direction of a round trip, the rANS kernels once per slice in theirs
-
-
-def bound(nbytes: float, flops: float):
-    """(least ms the card could take, what sets it)."""
-    tb = nbytes / HBM_BYTES_PER_S * 1e3
-    tf = flops / F32_FLOP_PER_S * 1e3
-    return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
 def card_line() -> str:
@@ -268,29 +253,6 @@ def max_abs(a: torch.Tensor, b: torch.Tensor) -> int:
     """Largest |a - b| of two integer tensors of one shape (0 if empty)."""
     check(a.shape == b.shape, f"shapes {tuple(a.shape)} != {tuple(b.shape)}")
     return int((a.long() - b.long()).abs().max()) if a.numel() else 0
-
-
-def term_ops(pts, pm, y2, spec, logistic: bool):
-    """(float operations Kernel 1 needs on these inputs, share of mixture
-    terms saturated): each normal term costs its full arithmetic unless its
-    erf saturates (the shortcut of cdf.cuh), each logistic term its full
-    arithmetic; plus the per-entry quantisation."""
-    M, s0, m0, w0, upd = spec
-    entries = pm.shape[0] * pts.shape[0]
-    if logistic:
-        return entries * (M * LOGISTIC_OPS + ENTRY_OPS), 0.0
-    std = lower_bound(pm[:, s0:s0 + M], SCALE_BOUND_NORMAL)
-    mean = pm[:, m0:m0 + M]
-    for coef0, ych in upd:
-        mean = mean + pm[:, coef0:coef0 + M] * y2[:, ych:ych + 1]
-    inv = 1.0 / std
-    sat = 0
-    for x in range(M):
-        z = (pts[None, :] - mean[:, x:x + 1]) * inv[:, x:x + 1]
-        sat += int(((z * cdf._SQRT2_INV).abs() > 10.5).sum())
-    terms = entries * M
-    return ((terms - sat) * NORMAL_OPS + sat * NORMAL_SAT_OPS
-            + entries * ENTRY_OPS), sat / terms
 
 
 def kernel_phase(codec, img):
@@ -343,14 +305,12 @@ def kernel_phase(codec, img):
               f"{label}: (start, freq) != the plain version's")
         ms = cuda_ms(lambda: cdf.gmm_cdf_from_pmap(*args), 20)
         plain_ms = cuda_ms(lambda: cdf.gmm_cdf_from_pmap_plain(*args), 5)
-        flops, sat = term_ops(pts, pm, y2, spec, logistic)
-        # per pixel the M * (3 + n_upd) pmap channels and the y channels
-        # the kernel reads, the row and (start, freq) written; the points
-        y_read = len({ych for _, ych in upd} | {sch})
-        nbytes = 4 * (n * (M * (3 + len(upd)) + y_read + P + 2) + P)
+        sat = 0 if logistic else cdf_pmap_saturated(pts, pm, y2, spec)
+        nbytes, flops = cdf_pmap_work(n, P, spec, sch, sat, logistic)
         bnd = bound(nbytes, flops)
         report(label, P, err, mism, size, ms, plain_ms, bnd,
-               f"; {100 * sat:.1f}% of mixture terms saturated, "
+               f"; {sat} of {n * P * M} mixture terms saturated "
+               f"({100 * sat / (n * P * M):.1f}%), "
                f"{flops / (ms * 1e9):.2f} TFLOP/s of needed work")
         return (cum, st, fr), (err, ms, plain_ms) + bnd
 
@@ -367,14 +327,9 @@ def kernel_phase(codec, img):
         ms = cuda_ms(lambda: cdf.gmm_cdf_table_int32(pts, *params), 20)
         plain_ms = cuda_ms(
             lambda: cdf.gmm_cdf_table_int32_plain(pts, *params), 5)
-        X = params[0].shape[-1]
-        z = (pts[None, None, None, None, :] - params[1][..., None]) \
-            / lower_bound(params[0], SCALE_BOUND_NORMAL)[..., None]
-        sat = int(((z * cdf._SQRT2_INV).abs() > 10.5).sum())
-        terms = n * P * X
-        flops = (terms - sat) * NORMAL_OPS + sat * NORMAL_SAT_OPS \
-            + n * P * ENTRY_OPS
-        bnd = bound(4 * (3 * n * X + P + n * P), flops)
+        bnd = bound(*cdf_table_work(
+            n, P, params[0].shape[-1],
+            cdf_table_saturated(pts, params[0], params[1])))
         report(f"kernel4 clr={clr}", P, err, mism, size, ms, plain_ms, bnd)
         return (err, ms, plain_ms) + bnd
 
@@ -439,14 +394,13 @@ def kernel_phase(codec, img):
     enc_plain = cuda_ms(
         lambda s, c, b: rans.rans_encode_plain(st0, fr0, s, c, b), 3,
         fresh_enc)
-    # (start, freq) read, words written, states read and written
-    bnd = bound(8 * n + 4 * words0 + 16 * N, 0)
+    bnd = bound(rans_encode_bytes(n, words0, N), 0)
     results["encode_slice"] = (enc_err, enc_ms, enc_plain) + bnd
     steps = -(-n // N)
-    print(f"kernel3 encode, Y slice alone (a chain of one): kernel "
-          f"{enc_ms:.5f} ms ({1e6 * enc_ms / steps:.1f} ns per step of "
-          f"{steps}), plain {enc_plain:.5f} ms, bound {bnd[0]:.5f} ms "
-          f"({bnd[1]})")
+    print(f"kernel3 encode, Y slice alone (a chain of one, {words0} "
+          f"words): kernel {enc_ms:.5f} ms ({1e6 * enc_ms / steps:.1f} ns "
+          f"per step of {steps}), plain {enc_plain:.5f} ms, bound "
+          f"{bnd[0]:.5f} ms ({bnd[1]})")
 
     # Kernel 2: decode the blob, kernel vs plain; symbols must round-trip
     states_np, words_np = rans.unpack_stream(blob, N)
@@ -484,13 +438,11 @@ def kernel_phase(codec, img):
     dec_plain = cuda_ms(
         lambda s, o: rans.rans_decode_plain(tables[0], words, s, o), 3,
         fresh_dec)
-    # per symbol the ceil(log2(P + 1)) entries a search reads and the
-    # symbol written; the words read; states read and written
-    searched = math.ceil(math.log2(P0 + 1))
-    bnd = bound(4 * n * (searched + 1) + 4 * int(o[0]) + 16 * N, 0)
+    bnd = bound(rans_decode_bytes(n, P0, int(o[0]), N), 0)
     results["decode"] = (dec_err, dec_ms, dec_plain) + bnd
     steps = -(-n // N)
-    print(f"kernel2 decode, Y slice P={P0}: kernel {dec_ms:.5f} ms "
+    print(f"kernel2 decode, Y slice P={P0}, {int(o[0])} words: kernel "
+          f"{dec_ms:.5f} ms "
           f"({1e3 * dec_ms / steps:.3f} us per step of {steps}), plain "
           f"{dec_plain:.5f} ms, bound {bnd[0]:.5f} ms ({bnd[1]})")
     return results
@@ -551,8 +503,7 @@ def chain_phase(codec, img):
         starts, freqs, offsets, s, c, b), 1,
         lambda _: fresh_carry(N, cap, dev))
     steps = sum(-(-n // N) for n in sizes)
-    # (start, freq) read, words written, states read and written
-    bnd = bound(8 * starts.numel() + 4 * total + 16 * N, 0)
+    bnd = bound(rans_encode_bytes(starts.numel(), total, N), 0)
     print(f"kernel3 encode chain: {len(sizes)} slices, {starts.numel()} "
           f"symbols, N={N}, {steps} steps -> {total} words; identical "
           f"words, per-slice cursors and states; kernel {ms:.5f} ms "
@@ -917,9 +868,7 @@ def batched_decode(cum, states, buf, totals, true_sym):
                  fresh_dec)
     plain = cuda_ms(lambda s, o: rans.rans_decode_plain(cum, words, s, o), 1,
                     fresh_dec)
-    searched = math.ceil(math.log2(P + 1))
-    bnd = bound(4 * K * n * (searched + 1) + 4 * sum(totals) + 16 * K * N,
-                0)
+    bnd = bound(rans_decode_bytes(K * n, P, sum(totals), K * N), 0)
     return err, ms, plain, bnd
 
 
@@ -944,7 +893,7 @@ def batched_kernel_phase(codec, imgs, kres):
         st, fr, offsets, s, c, b), 20, lambda _: batch_carry(K, N, cap, dev))
     y_plain = cuda_ms(lambda s, c, b: rans.rans_encode_chain_plain(
         st, fr, offsets, s, c, b), 1, lambda _: batch_carry(K, N, cap, dev))
-    y_bnd = bound(8 * K * n + 4 * sum(totals) + 16 * K * N, 0)
+    y_bnd = bound(rans_encode_bytes(K * n, sum(totals), K * N), 0)
 
     dec_err, dec_ms, dec_plain, dec_bnd = batched_decode(
         cum, states, buf, totals, true_sym)
@@ -962,8 +911,8 @@ def batched_kernel_phase(codec, imgs, kres):
     ch_plain = cuda_ms(lambda s, c, b: rans.rans_encode_chain_plain(
         starts, freqs, offs, s, c, b), 1,
         lambda _: batch_carry(K, N, ccap, dev))
-    ch_bnd = bound(8 * starts.numel() + 4 * sum(ccur.tolist())
-                   + 16 * K * N, 0)
+    ch_bnd = bound(rans_encode_bytes(starts.numel(), sum(ccur.tolist()),
+                                     K * N), 0)
 
     k1_dec, k1_chain = kres["decode"][1], kres["encode"][1]
     k1_y = kres["encode_slice"][1]
@@ -1409,17 +1358,6 @@ def slice_phase(codec, params, counters, images) -> None:
 TRAIN_SEED = 1337  # configs/paper_a.json's seed
 TRAIN_LR = 1e-4  # configs/paper_a.json's learning rate
 TIMED_STEPS = 6  # optimiser steps timed after the first, per flag setting
-# a float32 gradient's relative L2 distance from the float64 one: the
-# trained weights sit near a minimum, where a gradient is a small sum of
-# large cancelling terms; on an NVIDIA H100 (700 W) the band-2 gradients
-# came 7.98e-4 from float64 (the CPU's 1.28e-4); a wrong one is O(1).
-# It stays at 1e-2: tools/grad_drift_probe.py found the drift already in
-# the gradient reaching the pmap (1.67e-4 against the CPU's 3.36e-5),
-# ahead of any conv backward (band 2's layer-0 wgrad alone, cuDNN's
-# wgrad_alg1_engine and implicit-GEMM kernels: 6.9e-7), and no
-# deterministic setting brought it within 2x the CPU's (cuDNN off
-# 1.17e-3, channels-last 5.33e-4)
-GRAD_L2_BOUND = 1e-2
 
 
 def train_snapshot(model, opt):
@@ -1717,7 +1655,6 @@ def lanes_kernels(codec, img, kres):
     n, P = cum.shape
     starts, freqs, offsets, sizes, _ = chain_inputs(codec, img)
     starts, freqs = starts[0], freqs[0]
-    searched = math.ceil(math.log2(P + 1))
     out = {}
     for N in LANES:
         cap = starts.numel() + N  # a symbol emits at most one word
@@ -1734,7 +1671,7 @@ def lanes_kernels(codec, img, kres):
         ems = cuda_ms(chain(rans.rans_encode_chain), 20, carry)
         eplain = cuda_ms(chain(rans.rans_encode_chain_plain), 1, carry)
         steps = sum(-(-m // N) for m in sizes)
-        ebnd = bound(8 * starts.numel() + 4 * total + 16 * N, 0)
+        ebnd = bound(rans_encode_bytes(starts.numel(), total, N), 0)
 
         s, c, b = fresh_carry(N, n + N, dev)
         rans.rans_encode(st0, fr0, s, c, b)
@@ -1762,7 +1699,7 @@ def lanes_kernels(codec, img, kres):
                       fresh)
         dplain = cuda_ms(lambda sx, o: rans.rans_decode_plain(cum, words, sx,
                                                               o), 2, fresh)
-        dbnd = bound(4 * n * (searched + 1) + 4 * words0 + 16 * N, 0)
+        dbnd = bound(rans_decode_bytes(n, P, words0, N), 0)
         dsteps = -(-n // N)
         out[N] = {"decode": (derr, dms, dplain) + dbnd,
                   "encode": (eerr, ems, eplain) + ebnd, "steps": dsteps}
@@ -2223,8 +2160,7 @@ def sharded_kernels(codec, img):
                      fresh)
     dec_plain = cuda_ms(lambda s, o: rans.rans_decode_plain(cum, words, s,
                                                             o), 1, fresh)
-    dec_bnd = bound(4 * K * m * (math.ceil(math.log2(P + 1)) + 1)
-                    + 4 * sum(totals) + 16 * K * N, 0)
+    dec_bnd = bound(rans_decode_bytes(K * m, P, sum(totals), K * N), 0)
 
     # Kernel 3 on the four shards' whole chains, one call
     starts, freqs, offs, ccap = codec.encode_inputs(img)
@@ -2237,8 +2173,8 @@ def sharded_kernels(codec, img):
     ch_plain = cuda_ms(lambda s, c, b: rans.rans_encode_chain_plain(
         starts, freqs, offs, s, c, b), 1,
         lambda _: batch_carry(K, N, ccap, dev))
-    ch_bnd = bound(8 * starts.numel() + 4 * sum(ccur.tolist())
-                   + 16 * K * N, 0)
+    ch_bnd = bound(rans_encode_bytes(starts.numel(), sum(ccur.tolist()),
+                                     K * N), 0)
     print(f"sharded kernel2 decode, K={K} shards of the finest Y slice "
           f"(P={P}, {m} symbols a shard, N={N}, {-(-m // N)} steps): "
           f"identical symbols, states, offsets; {dec_ms:.5f} ms a launch, "
