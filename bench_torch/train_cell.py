@@ -19,6 +19,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from llicti_torch.codec import exact_math
 from llicti_torch.config import LLICTIConfig, config_from_json, replace
 from llicti_torch.data import ImageDataset, TrainLoader
 from llicti_torch.training import (Trainer, apply_gradients, make_optimizer,
@@ -70,15 +71,31 @@ def _hosts(batches, device) -> List[torch.Tensor]:
     return hosts
 
 
+GATE_I = "gate (i), the first timed step's code path under exact_math()"
+GATE_II = "gate (ii), the first timed step"
+
+
+def _params(model) -> Dict[str, torch.Tensor]:
+    return {n: p.detach().clone() for n, p in model.named_parameters()}
+
+
+def _grads(model) -> Dict[str, torch.Tensor]:
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
 def train_steps(cfg: LLICTIConfig, seed: int, clock, device="cuda",
                 steps: int = STEPS, warmup: int = WARMUP,
                 pinned: int = PINNED) -> Dict:
     """(a) ``warmup`` then ``steps`` timed optimiser steps of
     ``make_train_step``, each uploading its pinned batch non-blocking;
-    gates: every loss finite, and the first timed step's loss, gradients
-    and parameter update against the same step in float64 (the update by
-    a plain Adam from the optimiser's state before the step, on the
-    float64 gradients and on the step's own)."""
+    gates: every loss finite, and the first timed step in two halves
+    (``bench_torch.gates``): (i) the same code path from the same state
+    and batch again under ``exact_math()``, outside the timed window, its
+    loss and gradients against the step in float64 and its update against
+    a plain Adam's on the float64 gradients from the optimiser's state
+    before the step; (ii) the timed step's loss, gradients and update
+    against (i)'s, and its update against a plain Adam's on its own
+    gradients."""
     tc = cfg.train
     hosts = _hosts(loader_batches(cfg, seed, pinned), device)
     model, opt = _model(cfg, device)
@@ -91,36 +108,53 @@ def train_steps(cfg: LLICTIConfig, seed: int, clock, device="cuda",
         run(i)
     # the state the first timed step starts in: the model and Adam's moments
     ref, adam = copy.deepcopy(model), gates.adam_snapshot(model, opt)
+    opt_state = copy.deepcopy(opt.state_dict())
     times, losses, grads, after = [], [], None, None
     for i in range(warmup, warmup + steps):
         m, ms = clock.host(lambda: run(i))
         times.append(ms)
         losses.append(float(m["loss"]))
         if grads is None:  # the step's clipped gradients and its update
-            grads = {n: p.grad.detach().clone()
-                     for n, p in model.named_parameters()}
-            after = {n: p.detach().clone()
-                     for n, p in model.named_parameters()}
+            grads, after = _grads(model), _params(model)
     bad = [i for i, v in enumerate(losses) if not math.isfinite(v)]
     gates.gate(not bad, f"train step: timed steps {bad[:5]} have losses "
                f"{[losses[i] for i in bad[:5]]}")
     first = hosts[warmup % pinned].to(device)
+    before = _params(ref)
+    # (i) the function: the same step under exact_math()
+    exact = copy.deepcopy(ref)
+    exact_opt = make_optimizer(exact, tc.learning_rate)
+    exact_opt.load_state_dict(opt_state)
+    with exact_math():
+        exact_loss = float(make_train_step(exact, exact_opt,
+                                           tc.grad_clip_value)(first)["loss"])
+    exact_grads, exact_after = _grads(exact), _params(exact)
+    del exact, exact_opt
     loss64, grads64 = gates.float64_step(ref, first, tc.grad_clip_value)
-    label = "the first timed train step"
-    loss_rel, grad_l2, worst = gates.step_matches_float64(
-        losses[0], grads, loss64, grads64, label)
-    before = {n: p.detach() for n, p in ref.named_parameters()}
+    loss_rel, grad_l2, worst = gates.step_matches(
+        exact_loss, exact_grads, loss64, grads64, gates.LOSS_REL,
+        gates.GRAD_L2_BOUND, GATE_I, "the float64 step")
     upd_l2, upd_worst = gates.update_matches(
-        before, after, gates.adam_update(adam, grads64),
-        gates.UPDATE_L2_BOUND, label + " (float64 gradients)")
+        before, exact_after, gates.adam_update(adam, grads64),
+        gates.UPDATE_L2_BOUND, GATE_I + " (Adam on the float64 gradients)")
+    # (ii) the timed step: (i)'s computation, and Adam on its own gradients
+    timed_loss_rel, timed_grad_l2, timed_worst = gates.step_matches(
+        losses[0], grads, exact_loss, exact_grads, gates.TIMED_LOSS_REL,
+        gates.TIMED_GRAD_L2_BOUND, GATE_II, "(i)")
+    timed_upd_l2, _ = gates.update_matches(
+        before, after, {n: exact_after[n].double() - before[n].double()
+                        for n in before},
+        gates.TIMED_UPDATE_L2_BOUND, GATE_II + " (against (i)'s update)")
     adam_l2, _ = gates.update_matches(
         before, after, gates.adam_update(adam, {
             n: g.double() for n, g in grads.items()}),
-        gates.ADAM_L2_BOUND, label + " (its own gradients)")
+        gates.ADAM_L2_BOUND, GATE_II + " (Adam on its own gradients)")
     return {"step_ms": times, "losses": losses, "loss64": loss64,
             "loss_rel": loss_rel, "grad_l2": grad_l2, "grad_l2_worst": worst,
             "update_l2": upd_l2, "update_l2_worst": upd_worst,
-            "adam_l2": adam_l2}
+            "timed_loss_rel": timed_loss_rel, "timed_grad_l2": timed_grad_l2,
+            "timed_grad_l2_worst": timed_worst,
+            "timed_update_l2": timed_upd_l2, "adam_l2": adam_l2}
 
 
 def trainer_loop(cfg: LLICTIConfig, seed: int, clock, device="cuda",
@@ -176,6 +210,11 @@ def metrics(steps: Dict, loop: Dict, flops: int) -> Dict[str, Dict]:
                               grad_l2_worst=steps["grad_l2_worst"],
                               update_l2_float64=steps["update_l2"],
                               update_l2_worst=steps["update_l2_worst"],
+                              timed_loss_rel=steps["timed_loss_rel"],
+                              timed_grad_l2=steps["timed_grad_l2"],
+                              timed_grad_l2_worst=steps[
+                                  "timed_grad_l2_worst"],
+                              timed_update_l2=steps["timed_update_l2"],
                               adam_l2_own_gradients=steps["adam_l2"]),
         "trainer_step_ms": dict(summary(loop["step_ms"], 0.75),
                                 value=statistics.median(loop["step_ms"])),

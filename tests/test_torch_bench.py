@@ -22,6 +22,7 @@ from bench_torch.metrics import CELLS, CODEC, METRICS, TRAIN, names
 from llicti_torch import Codec, ModelConfig, synthetic_image
 from llicti_torch import codec as cmod
 from llicti_torch.config import DataConfig, LLICTIConfig, TrainConfig
+from llicti_torch.models.llicti import LLICTIModel
 from llicti_torch.ops.gmm import cdf_sampling_points
 from llicti_torch.training import Trainer
 from llicti_torch.weights import init_params, params_from_flax
@@ -65,11 +66,14 @@ def test_cells_run_and_pass_their_gates_on_the_cpu(tiny_runs):
     assert math.isnan(m["decode_ms"]["value"])
     assert m["decode_mfu"]["flops"] > 0
     assert sorted(t) == sorted(names(TRAIN, False))
-    assert t["train_step_ms"]["loss_rel_float64"] <= gates.LOSS_REL
-    assert t["train_step_ms"]["grad_l2_float64"] <= gates.GRAD_L2_BOUND
-    assert t["train_step_ms"]["update_l2_float64"] <= gates.UPDATE_L2_BOUND
-    assert t["train_step_ms"]["adam_l2_own_gradients"] <= \
-        gates.ADAM_L2_BOUND
+    step = t["train_step_ms"]
+    assert step["loss_rel_float64"] <= gates.LOSS_REL
+    assert step["grad_l2_float64"] <= gates.GRAD_L2_BOUND
+    assert step["update_l2_float64"] <= gates.UPDATE_L2_BOUND
+    assert step["timed_loss_rel"] <= gates.TIMED_LOSS_REL
+    assert step["timed_grad_l2"] <= gates.TIMED_GRAD_L2_BOUND
+    assert step["timed_update_l2"] <= gates.TIMED_UPDATE_L2_BOUND
+    assert step["adam_l2_own_gradients"] <= gates.ADAM_L2_BOUND
     assert t["trainer_step_ms"]["n"] == 2
     # 3 x the forward of 2 x 2 patches of 32^2
     model = params_from_flax(init_params(TINY, 0), TINY)
@@ -98,6 +102,13 @@ def test_gates_fail_on_a_flipped_byte_an_image_off_by_one_and_a_gap():
 
 
 _ADAM_STEP = torch.optim.Adam.step
+_FORWARD = LLICTIModel.forward
+
+
+def _timed_only():
+    """Whether the step runs at PyTorch's default flags, not under
+    ``exact_math()`` (which makes cuDNN deterministic)."""
+    return not torch.backends.cudnn.deterministic
 
 
 def _no_update(self, closure=None):
@@ -119,18 +130,53 @@ def _moments_lost(self, closure=None):  # each step starts Adam afresh
     return _ADAM_STEP(self)
 
 
-@pytest.mark.parametrize("fault", [_no_update, _mis_scaled, _moments_lost],
-                         ids=["no_update", "mis_scaled", "moments_lost"])
-def test_train_gate_fails_a_wrong_update(fault, monkeypatch, tmp_path):
-    """The training cell's gate holds the first timed step's parameter
-    change to a plain Adam's update from the state before it: a step that
-    leaves the weights unchanged, one at 1.01 x its learning rate and one
-    that loses Adam's moments each fail it, while the step's loss and
-    gradients stay right."""
-    monkeypatch.setattr(torch.optim.Adam, "step", fault)
-    with pytest.raises(gates.GateFailed, match="the update of"):
+def _zeroed_band(self, x, halo=None):  # band 1 passes back no gradient
+    out = []
+    for si in _FORWARD(self, x, halo):
+        w = si.shape[-1] // 3
+        out.append(torch.cat((si[..., :w], si[..., w:2 * w].detach(),
+                              si[..., 2 * w:]), dim=-1))
+    return out
+
+
+def _mis_scaled_timed(self, closure=None):
+    return (_mis_scaled if _timed_only() else _ADAM_STEP)(self)
+
+
+def _zeroed_band_timed(self, x, halo=None):
+    return (_zeroed_band if _timed_only() else _FORWARD)(self, x, halo)
+
+
+_ADAM, _MODEL = (torch.optim.Adam, "step"), (LLICTIModel, "forward")
+
+
+@pytest.mark.parametrize("where,fault,half,what", [
+    (_ADAM, _no_update, "(i)", "the update of"),
+    (_ADAM, _mis_scaled, "(i)", "the update of"),
+    (_ADAM, _moments_lost, "(i)", "the update of"),
+    (_MODEL, _zeroed_band, "(i)", "the gradient of"),
+    (_MODEL, _zeroed_band_timed, "(ii)", "the gradient of"),
+    (_ADAM, _mis_scaled_timed, "(ii)", "Adam on its own gradients"),
+], ids=["no_update", "mis_scaled", "moments_lost", "zeroed_band",
+        "zeroed_band_timed_only", "mis_scaled_timed_only"])
+def test_train_gate_fails_a_wrong_update(where, fault, half, what,
+                                         monkeypatch, tmp_path):
+    """The training cell's gate, in two halves: (i) the first timed
+    step's code path run again under ``exact_math()`` from the same state,
+    against the step in float64 and a plain Adam's update on its
+    gradients; (ii) the timed step against (i)'s, and its update against
+    a plain Adam's on its own gradients.  A step that leaves the weights
+    unchanged, one at 1.01 x its learning rate, one that loses Adam's
+    moments and one whose band 1 passes back no gradient each fail (i);
+    a zeroed band and a 1.01 x lr that only the timed step (PyTorch's
+    default flags) takes each fail (ii), the second only against Adam on
+    the step's own gradients (TF32's noise hides 1 % from (i)'s step)."""
+    monkeypatch.setattr(*where, fault)
+    with pytest.raises(gates.GateFailed, match=re.escape(f"gate {half}")) \
+            as err:
         train_cell.train_steps(tiny_train_config(tmp_path), 7, NoClock,
                                device="cpu", steps=1, warmup=3, pinned=2)
+    assert what in str(err.value)
 
 
 def test_percentile_needs_ten_samples_beyond_it():
