@@ -86,6 +86,7 @@ from .ops.gmm import (cdf_float_to_cum_int32, cdf_float_to_uint16,
                       cdf_sampling_points, cum_start_freq, gmm_cdf_table)
 from .ops.wavelet import (band_coded_shape, interleave_scale, lazy_dwt,
                           pad_decoded_band, unpack_pad_flags)
+from .tracing import entry, span
 from .weights import params_from_flax
 
 RANGE_BUCKET = 32
@@ -125,13 +126,16 @@ def _settle_cpu_math() -> None:
     torch.special.erfc(x)
 
 
-def _pass(method):
-    """Run a codec method under inference mode and :func:`exact_math`."""
-    @functools.wraps(method)
-    def run(*args, **kwargs):
-        with torch.inference_mode(), exact_math():
-            return method(*args, **kwargs)
-    return run
+def _pass(name: str):
+    """Run a codec method under inference mode and :func:`exact_math`, in
+    the entry span ``name`` (``llicti.compress`` or ``llicti.decompress``)."""
+    def wrap(method):
+        @functools.wraps(method)
+        def run(*args, **kwargs):
+            with entry(name), torch.inference_mode(), exact_math():
+                return method(*args, **kwargs)
+        return run
+    return wrap
 
 
 def clr_offset(cfg: ModelConfig) -> int:
@@ -365,20 +369,26 @@ def parse_container(streams: List[List[bytes]],
     stream, or S groups of 9 range-coded streams; ValueError on one that
     does not describe an image of ``levels`` (see
     :func:`_checked_header`)."""
-    S = len(levels)
-    device = len(streams) == 2 and len(streams[1]) == 1
-    host = len(streams) == 1 + S and all(len(g) == 9 for g in streams[1:])
-    if not (device or host) or len(streams[0]) < 4:
-        raise ValueError("not a single-image container (one rANS stream, "
-                         f"or {S} groups of 9 range-coded streams)")
-    hdr = streams[0][0]
-    if len(hdr) < 13 or hdr[0] != len(levels):
-        raise ValueError(f"header does not describe {len(levels)} scales")
-    last_h, last_w = (int(v) for v in np.frombuffer(hdr[1:5], np.uint16))
-    orig = tuple(int(v) for v in np.frombuffer(hdr[5:13], np.uint32))
-    head = (int(np.frombuffer(hdr[13:17], np.uint32)[0])
-            if len(hdr) >= 17 else None)
-    return _checked_header(levels, last_h, last_w, [orig], streams[0], head)
+    with span("llicti.unpack"):
+        S = len(levels)
+        device = len(streams) == 2 and len(streams[1]) == 1
+        host = (len(streams) == 1 + S
+                and all(len(g) == 9 for g in streams[1:]))
+        if not (device or host) or len(streams[0]) < 4:
+            raise ValueError("not a single-image container (one rANS "
+                             f"stream, or {S} groups of 9 range-coded "
+                             "streams)")
+        hdr = streams[0][0]
+        if len(hdr) < 13 or hdr[0] != len(levels):
+            raise ValueError(
+                f"header does not describe {len(levels)} scales")
+        last_h, last_w = (int(v)
+                          for v in np.frombuffer(hdr[1:5], np.uint16))
+        orig = tuple(int(v) for v in np.frombuffer(hdr[5:13], np.uint32))
+        head = (int(np.frombuffer(hdr[13:17], np.uint32)[0])
+                if len(hdr) >= 17 else None)
+        return _checked_header(levels, last_h, last_w, [orig], streams[0],
+                               head)
 
 
 def parse_batch_container(streams: List[List[bytes]],
@@ -386,19 +396,23 @@ def parse_batch_container(streams: List[List[bytes]],
     """The Header of a batch container, validated as
     :func:`parse_container` validates a single one, plus its marker, K and
     the one blob of each image."""
-    hdr = streams[0][0] if streams and streams[0] else b""
-    if len(hdr) < 3 or hdr[0] != 255:
-        raise ValueError("not a batch container")
-    K, S = hdr[1], hdr[2]
-    if S != len(levels):
-        raise ValueError(f"header does not describe {len(levels)} scales")
-    if (K < 1 or len(hdr) != 7 + 8 * K or len(streams) != 1 + K
-            or any(len(g) != 1 for g in streams[1:])):
-        raise ValueError("inconsistent batch container")
-    last_h, last_w = (int(v) for v in np.frombuffer(hdr[3:7], np.uint16))
-    origs = [tuple(int(v) for v in row) for row in
-             np.frombuffer(hdr[7:], np.uint32).reshape(K, 2)]
-    return _checked_header(levels, last_h, last_w, origs, streams[0], None)
+    with span("llicti.unpack"):
+        hdr = streams[0][0] if streams and streams[0] else b""
+        if len(hdr) < 3 or hdr[0] != 255:
+            raise ValueError("not a batch container")
+        K, S = hdr[1], hdr[2]
+        if S != len(levels):
+            raise ValueError(
+                f"header does not describe {len(levels)} scales")
+        if (K < 1 or len(hdr) != 7 + 8 * K or len(streams) != 1 + K
+                or any(len(g) != 1 for g in streams[1:])):
+            raise ValueError("inconsistent batch container")
+        last_h, last_w = (int(v)
+                          for v in np.frombuffer(hdr[3:7], np.uint16))
+        origs = [tuple(int(v) for v in row) for row in
+                 np.frombuffer(hdr[7:], np.uint32).reshape(K, 2)]
+        return _checked_header(levels, last_h, last_w, origs, streams[0],
+                               None)
 
 
 def serialize(streams: List[List[bytes]]) -> bytes:
@@ -588,19 +602,31 @@ class Codec:
         np.copyto(pinned.numpy(), arr)
         return pinned
 
-    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         return self._host(arr).to(self.device, non_blocking=True)
+
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        with span("llicti.upload"):
+            return self._to_device(arr)
 
     def _fetch(self, tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
         """Device tensors -> numpy arrays, after one synchronisation."""
-        if self.device.type == "cpu":
-            return [t.numpy() for t in tensors]
-        hosts = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                 for t in tensors]
-        for h, t in zip(hosts, tensors):
-            h.copy_(t, non_blocking=True)
-        torch.cuda.current_stream(self.device).synchronize()
-        return [h.numpy() for h in hosts]
+        with span("llicti.fetch"):
+            hosts = list(tensors)
+            if self.device.type != "cpu":
+                hosts = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                         for t in tensors]
+                for h, t in zip(hosts, tensors):
+                    h.copy_(t, non_blocking=True)
+            self._settle()
+            return [h.numpy() for h in hosts]
+
+    def _settle(self) -> None:
+        """Wait for the work queued on the codec's stream (nothing to wait
+        for on the CPU)."""
+        with span("llicti.wait"):
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
 
     # ---- shared pieces ---------------------------------------------------
     def _pts3(self, ranges) -> List[torch.Tensor]:
@@ -622,37 +648,41 @@ class Codec:
         ``[K*n]`` (symbol + range minimum), written back into ``y_lev`` in
         place before the next colour's rows are cut; an encoder's returns
         None."""
-        cfg = self.cfg
-        c = cfg.cond_channels
-        K = y_lev.shape[0]
-        ch, cw = band_coded_shape(y_lev.shape[1], y_lev.shape[2], b, padH,
-                                  padW)
-        n = ch * cw
+        with span("llicti.band"):
+            cfg = self.cfg
+            c = cfg.cond_channels
+            K = y_lev.shape[0]
+            ch, cw = band_coded_shape(y_lev.shape[1], y_lev.shape[2], b,
+                                      padH, padW)
+            n = ch * cw
 
-        def coded_rows(t):  # [K, h, w, C] -> [K * ch * cw, C]
-            return t[:, :ch, :cw].reshape(K * n, -1).contiguous()
+            def coded_rows(t):  # [K, h, w, C] -> [K * ch * cw, C]
+                return t[:, :ch, :cw].reshape(K * n, -1).contiguous()
 
-        y_cond = y_lev[..., :c * (b + 1)].contiguous()
-        seq = seq_colours(cfg)
-        if seq:
-            base = self.model.band_base(y_cond, scl, b, self._halo)
-        else:
-            pm = coded_rows(self.model.band_params(y_cond, scl, b,
-                                                   self._halo))
-        sch0 = sym_channel(cfg, b, 0)
-        for clr in range(3):
-            if seq:
-                # this colour's params from the pixel's colours decoded so
-                # far: both directions run the trunk on the same shapes
-                pm = coded_rows(self.model.band_params_seq(
-                    base, y_lev[..., sch0:sch0 + 2], scl, b, clr))
-            # rebuilt per colour: decode writes each colour back before the
-            # next one's cross-colour mean update reads it
-            vals = code(b, clr, pm, coded_rows(y_lev))
-            if vals is not None:
-                v = vals.view(K, ch, cw, 1).float() * INV255
-                y_lev[..., sym_channel(cfg, b, clr)] = pad_decoded_band(
-                    v, b, padH, padW)[..., 0]
+            y_cond = y_lev[..., :c * (b + 1)].contiguous()
+            seq = seq_colours(cfg)
+            with span("llicti.interp"):
+                if seq:
+                    base = self.model.band_base(y_cond, scl, b, self._halo)
+                else:
+                    pm = coded_rows(self.model.band_params(y_cond, scl, b,
+                                                           self._halo))
+            sch0 = sym_channel(cfg, b, 0)
+            for clr in range(3):
+                if seq:
+                    # this colour's params from the pixel's colours decoded
+                    # so far: both directions run the trunk on the same
+                    # shapes
+                    with span("llicti.interp"):
+                        pm = coded_rows(self.model.band_params_seq(
+                            base, y_lev[..., sch0:sch0 + 2], scl, b, clr))
+                # rebuilt per colour: decode writes each colour back before
+                # the next one's cross-colour mean update reads it
+                vals = code(b, clr, pm, coded_rows(y_lev))
+                if vals is not None:
+                    v = vals.view(K, ch, cw, 1).float() * INV255
+                    y_lev[..., sym_channel(cfg, b, clr)] = pad_decoded_band(
+                        v, b, padH, padW)[..., 0]
 
     def _cdf_float(self, pm, y2, pts, b: int, clr: int) -> torch.Tensor:
         """One colour's float mixture CDF ``[n, P]`` at ``pts``, from its
@@ -667,24 +697,26 @@ class Codec:
         freq) [K*n] at the pixels' symbols: Kernel 1, or with
         ``use_kernel_cdf=False`` the float mixture CDF quantised in plain
         PyTorch."""
-        sch = sym_channel(self.cfg, b, clr)
-        if self.use_kernel_cdf:
-            M, std0, mean0, w0, upd = pmap_cdf_spec(self.cfg, b, clr)
-            return gmm_cdf_from_pmap(
-                pts3[clr], pm, y2, M, std0, mean0, w0, upd, self.logistic,
-                sch, ranges[clr][0])
-        cum = cdf_float_to_cum_int32(self._cdf_float(pm, y2, pts3[clr], b,
-                                                     clr))
-        return (cum,) + cum_start_freq(cum, y2[:, sch], ranges[clr][0])
+        with span("llicti.kernel1"):
+            sch = sym_channel(self.cfg, b, clr)
+            if self.use_kernel_cdf:
+                M, std0, mean0, w0, upd = pmap_cdf_spec(self.cfg, b, clr)
+                return gmm_cdf_from_pmap(
+                    pts3[clr], pm, y2, M, std0, mean0, w0, upd,
+                    self.logistic, sch, ranges[clr][0])
+            cum = cdf_float_to_cum_int32(self._cdf_float(pm, y2, pts3[clr],
+                                                         b, clr))
+            return (cum,) + cum_start_freq(cum, y2[:, sch], ranges[clr][0])
 
     def _front(self, rgb_dev: torch.Tensor) -> List[torch.Tensor]:
         """uint8 RGB [K, H, W, 3] on the device -> the encoder's per-scale
         band tensors (integer YCoCg-R, shifted, /255; padded lazy
         wavelet)."""
-        x = self._to_y(rgb_int_to_ycocg_r_int(rgb_dev))
-        if clr_offset(self.cfg):
-            x = torch.cat((torch.zeros_like(x[..., :1]), x), dim=-1)
-        return lazy_dwt(x, self.cfg.dwtlevels, pad=True)[0]
+        with span("llicti.wavelet"):
+            x = self._to_y(rgb_int_to_ycocg_r_int(rgb_dev))
+            if clr_offset(self.cfg):
+                x = torch.cat((torch.zeros_like(x[..., :1]), x), dim=-1)
+            return lazy_dwt(x, self.cfg.dwtlevels, pad=True)[0]
 
     # ---- encode ----------------------------------------------------------
     def _prepare(self, rgb: np.ndarray) -> Tuple[np.ndarray, int, int]:
@@ -713,24 +745,26 @@ class Codec:
 
     def _stage(self, imgs: Sequence[np.ndarray]) -> _Staged:
         """The host's part of an encode of images of one padded shape."""
-        if not len(imgs):
-            raise ValueError("no images")
-        prepped = [self._prepare(im) for im in imgs]
-        if len({p[0].shape for p in prepped}) != 1:
-            raise ValueError("a batch takes images of one shape (after "
-                             "size_bucket padding)")
-        rgb = np.concatenate([p[0] for p in prepped])
-        H, W = rgb.shape[1], rgb.shape[2]
-        levels = self.cfg.dwtlevels
-        pad_flags, pad_int = pad_flags_for_shape(H, W, levels)
-        minmax, raw = host_header(rgb, levels)
-        stride = 2 ** (max(levels) + 1)
-        last_h, last_w = -(-H // stride), -(-W // stride)
-        return _Staged(rgb, [(oh, ow) for _, oh, ow in prepped], minmax, raw,
-                       pad_flags, pad_int, last_h, last_w,
-                       words_cap(self.N, self.cfg.num_scales, last_h, last_w,
-                                 pad_flags),
-                       [clr_range(clr, minmax) for clr in range(3)])
+        with span("llicti.stage"):
+            if not len(imgs):
+                raise ValueError("no images")
+            prepped = [self._prepare(im) for im in imgs]
+            if len({p[0].shape for p in prepped}) != 1:
+                raise ValueError("a batch takes images of one shape (after "
+                                 "size_bucket padding)")
+            rgb = np.concatenate([p[0] for p in prepped])
+            H, W = rgb.shape[1], rgb.shape[2]
+            levels = self.cfg.dwtlevels
+            pad_flags, pad_int = pad_flags_for_shape(H, W, levels)
+            with span("llicti.host_header"):
+                minmax, raw = host_header(rgb, levels)
+            stride = 2 ** (max(levels) + 1)
+            last_h, last_w = -(-H // stride), -(-W // stride)
+            return _Staged(rgb, [(oh, ow) for _, oh, ow in prepped], minmax,
+                           raw, pad_flags, pad_int, last_h, last_w,
+                           words_cap(self.N, self.cfg.num_scales, last_h,
+                                     last_w, pad_flags),
+                           [clr_range(clr, minmax) for clr in range(3)])
 
     def _encode_slices(self, rgb_dev: torch.Tensor, st: _Staged):
         """Queue the convs and CDF tables of an encode of ``rgb_dev`` (uint8
@@ -758,22 +792,24 @@ class Codec:
         nothing synchronises."""
         sf = self._encode_slices(rgb_dev, st)
         K = rgb_dev.shape[0]
-        # one chain per image, slices in encode order (the reverse of
-        # decode order), all K chains in one call
-        starts = torch.cat([start for start, _ in reversed(sf)], dim=1)
-        freqs = torch.cat([freq for _, freq in reversed(sf)], dim=1)
-        offsets = torch.from_numpy(np.cumsum(
-            [0] + [freq.shape[1] for _, freq in reversed(sf)]))
-        states = torch.full((K, self.N), RANS_L, dtype=torch.int64,
-                            device=self.device)
-        cursor = torch.zeros((K,), dtype=torch.int32, device=self.device)
-        buf = torch.zeros((K, st.cap), dtype=torch.int32, device=self.device)
-        cursors = rans_encode_chain(starts, freqs, offsets, states, cursor,
-                                    buf)
-        ideal = torch.stack([
-            torch.where(freq > 0, 16.0 - torch.log2(
-                freq.clamp(min=1).float()), 0.0).sum(dim=1)
-            for _, freq in sf], dim=1)
+        with span("llicti.kernel3"):
+            # one chain per image, slices in encode order (the reverse of
+            # decode order), all K chains in one call
+            starts = torch.cat([start for start, _ in reversed(sf)], dim=1)
+            freqs = torch.cat([freq for _, freq in reversed(sf)], dim=1)
+            offsets = torch.from_numpy(np.cumsum(
+                [0] + [freq.shape[1] for _, freq in reversed(sf)]))
+            states = torch.full((K, self.N), RANS_L, dtype=torch.int64,
+                                device=self.device)
+            cursor = torch.zeros((K,), dtype=torch.int32, device=self.device)
+            buf = torch.zeros((K, st.cap), dtype=torch.int32,
+                              device=self.device)
+            cursors = rans_encode_chain(starts, freqs, offsets, states,
+                                        cursor, buf)
+            ideal = torch.stack([
+                torch.where(freq > 0, 16.0 - torch.log2(
+                    freq.clamp(min=1).float()), 0.0).sum(dim=1)
+                for _, freq in sf], dim=1)
         return cursors, states, buf, ideal
 
     def _slice_bits_table(self, cursors_row: np.ndarray) -> List[List[int]]:
@@ -798,19 +834,22 @@ class Codec:
         small = self._fetch([t for cursors, states, _, ideal in outs
                              for t in (cursors, states, ideal)])
         payloads = []
-        for st, (_, _, buf, _), cursors in zip(groups, outs, small[0::3]):
-            totals = [int(v) for v in cursors[:, -1]]
-            if max(totals) > st.cap:
-                raise RuntimeError(f"rANS stream of {max(totals)} words "
-                                   f"overran its {st.cap}-word buffer")
-            payloads += [buf[k, :t] for k, t in enumerate(totals)]
+        with span("llicti.pack"):
+            for st, (_, _, buf, _), cursors in zip(groups, outs,
+                                                   small[0::3]):
+                totals = [int(v) for v in cursors[:, -1]]
+                if max(totals) > st.cap:
+                    raise RuntimeError(f"rANS stream of {max(totals)} words "
+                                       f"overran its {st.cap}-word buffer")
+                payloads += [buf[k, :t] for k, t in enumerate(totals)]
         words = iter(self._fetch(payloads))
-        return [[(pack_stream_packed(next(words), states[k]),
-                  self._slice_bits_table(cursors[k]),
-                  self._ideal_bits_table(ideal[k]))
-                 for k in range(cursors.shape[0])]
-                for cursors, states, ideal in zip(small[0::3], small[1::3],
-                                                  small[2::3])]
+        with span("llicti.pack"):
+            return [[(pack_stream_packed(next(words), states[k]),
+                      self._slice_bits_table(cursors[k]),
+                      self._ideal_bits_table(ideal[k]))
+                     for k in range(cursors.shape[0])]
+                    for cursors, states, ideal in zip(
+                        small[0::3], small[1::3], small[2::3])]
 
     def _account(self, per_image) -> None:
         """Keep the accounting of an encode: one table per image, and their
@@ -825,7 +864,7 @@ class Codec:
         self.last_ideal_bits = [[sum(t[s][i] for t in ideal)
                                  for i in range(9)] for s in range(S)]
 
-    @_pass
+    @_pass("llicti.compress")
     def compress(self, rgb: np.ndarray) -> List[List[bytes]]:
         """Encode one image: rgb ``[H, W, 3]`` or ``[1, H, W, 3]`` uint8,
         with the codec's backend.  Fills the accounting tables
@@ -834,7 +873,7 @@ class Codec:
             return self._compress_host(rgb)
         return self.compress_many([rgb])[0]
 
-    @_pass
+    @_pass("llicti.compress")
     def compress_many(self, imgs: Sequence[np.ndarray]
                       ) -> List[List[List[bytes]]]:
         """Pipelined encode of several images, each into its own
@@ -847,15 +886,16 @@ class Codec:
         package's does."""
         groups = [self._stage([im]) for im in imgs]
         per = [g[0] for g in self._encode(groups)]
-        self._account(per)
-        S = self.cfg.num_scales
-        return [[header_group(S, st.last_h, st.last_w, *st.origs[0],
-                              st.minmax, st.pad_int, st.raw.tobytes(),
-                              sum(sum(row) for row in act[:-1]) // 16),
-                 [blob]]
-                for st, (blob, act, _) in zip(groups, per)]
+        with span("llicti.pack"):
+            self._account(per)
+            S = self.cfg.num_scales
+            return [[header_group(S, st.last_h, st.last_w, *st.origs[0],
+                                  st.minmax, st.pad_int, st.raw.tobytes(),
+                                  sum(sum(row) for row in act[:-1]) // 16),
+                     [blob]]
+                    for st, (blob, act, _) in zip(groups, per)]
 
-    @_pass
+    @_pass("llicti.compress")
     def compress_batch(self, imgs: Sequence[np.ndarray]) -> List[List[bytes]]:
         """Encode K <= 254 images of one shape (after ``size_bucket``
         padding) into one batch container: one K-batched pass, each image
@@ -868,13 +908,14 @@ class Codec:
             raise ValueError(f"a batch holds 1..254 images, got {len(imgs)}")
         st = self._stage(imgs)
         per = self._encode([st])[0]
-        self._account(per)
-        return ([batch_header_group(self.cfg.num_scales, st.last_h,
-                                    st.last_w, st.origs, st.minmax,
-                                    st.pad_int, st.raw.tobytes())]
-                + [[blob] for blob, _, _ in per])
+        with span("llicti.pack"):
+            self._account(per)
+            return ([batch_header_group(self.cfg.num_scales, st.last_h,
+                                        st.last_w, st.origs, st.minmax,
+                                        st.pad_int, st.raw.tobytes())]
+                    + [[blob] for blob, _, _ in per])
 
-    @_pass
+    @_pass("llicti.compress")
     def encode_inputs(self, imgs):
         """The encoder's rANS inputs before any is encoded, of one image
         ``[H, W, 3]`` or of a list of images of one shape: (the (start,
@@ -901,11 +942,6 @@ class Codec:
                 return self._encode_queue(rgb_dev, st)
 
         return encode
-
-    def _settle(self) -> None:
-        """Wait for the staging copies of a resident closure."""
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
 
     # ---- host backend ----------------------------------------------------
     def _cdf_u16(self, pm, y2, pts, b: int, clr: int) -> torch.Tensor:
@@ -980,12 +1016,13 @@ class Codec:
     def _decode_stage(self, blobs: Sequence[bytes]):
         """Unpack K streams on the host: (words int32 [K, W], each row
         zero-padded to the longest stream, lane states int64 [K, N])."""
-        unpacked = [unpack_stream(b, self.N) for b in blobs]
-        words = np.zeros((len(blobs), max(w.size for _, w in unpacked)),
-                         np.int32)
-        for k, (_, w) in enumerate(unpacked):
-            words[k, :w.size] = w
-        return words, np.stack([s for s, _ in unpacked]).astype(np.int64)
+        with span("llicti.unpack"):
+            unpacked = [unpack_stream(b, self.N) for b in blobs]
+            words = np.zeros((len(blobs), max(w.size for _, w in unpacked)),
+                             np.int32)
+            for k, (_, w) in enumerate(unpacked):
+                words[k, :w.size] = w
+            return words, np.stack([s for s, _ in unpacked]).astype(np.int64)
 
     def _head_width(self, hdr: Header, W: int) -> int:
         """Words of each row that scales S-1..1 read: a single container
@@ -1003,24 +1040,28 @@ class Codec:
         pinned memory.  Two-stage: the coarse scales read the head columns
         of ``words``; with ``split`` on a card, the columns after the head
         copy on a second stream, which scale 0 waits on."""
-        raw, st = self._upload(hdr.raw), self._upload(states)
-        if not self.two_stage:
-            return _DecodeInputs(hdr, raw, self._upload(words), st, None,
-                                 None)
-        K, W = words.shape
-        hw = self._head_width(hdr, W)
-        ready = None
-        if split and self._side is not None:
-            dev = torch.empty((K, W), dtype=torch.int32, device=self.device)
-            dev[:, :hw].copy_(self._host(words[:, :hw]), non_blocking=True)
-            self._side.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(self._side):
-                dev[:, hw:].copy_(self._host(words[:, hw:]),
+        with span("llicti.upload"):
+            raw, st = self._to_device(hdr.raw), self._to_device(states)
+            if not self.two_stage:
+                return _DecodeInputs(hdr, raw, self._to_device(words), st,
+                                     None, None)
+            K, W = words.shape
+            hw = self._head_width(hdr, W)
+            ready = None
+            if split and self._side is not None:
+                dev = torch.empty((K, W), dtype=torch.int32,
+                                  device=self.device)
+                dev[:, :hw].copy_(self._host(words[:, :hw]),
                                   non_blocking=True)
-                ready = self._side.record_event()
-        else:
-            dev = self._upload(words)
-        return _DecodeInputs(hdr, raw, dev, st, dev[:, :hw], ready)
+                self._side.wait_stream(
+                    torch.cuda.current_stream(self.device))
+                with torch.cuda.stream(self._side):
+                    dev[:, hw:].copy_(self._host(words[:, hw:]),
+                                      non_blocking=True)
+                    ready = self._side.record_event()
+            else:
+                dev = self._to_device(words)
+            return _DecodeInputs(hdr, raw, dev, st, dev[:, :hw], ready)
 
     def _decode_scales(self, hdr: Header, raw: torch.Tensor, scale_code):
         """The scale loop of every decoder: per scale, coarse to fine, the
@@ -1035,27 +1076,30 @@ class Codec:
         off = clr_offset(cfg)
         y_lev = None
         for scl in range(S - 1, -1, -1):
-            if scl == S - 1:
-                x00 = self._to_y(rgb_int_to_ycocg_r_int(raw))
-                lo, hi = off, off + 3
-            else:
-                x00 = interleave_scale(y_lev, c,
-                                       int(hdr.pad_flags[scl + 1][0]),
-                                       int(hdr.pad_flags[scl + 1][1]))
-                lo, hi = 0, c
-            y_lev = torch.zeros(x00.shape[:3] + (4 * c,),
-                                dtype=torch.float32, device=self.device)
-            y_lev[..., lo:hi] = x00
+            with span("llicti.wavelet"):
+                if scl == S - 1:
+                    x00 = self._to_y(rgb_int_to_ycocg_r_int(raw))
+                    lo, hi = off, off + 3
+                else:
+                    x00 = interleave_scale(y_lev, c,
+                                           int(hdr.pad_flags[scl + 1][0]),
+                                           int(hdr.pad_flags[scl + 1][1]))
+                    lo, hi = 0, c
+                y_lev = torch.zeros(x00.shape[:3] + (4 * c,),
+                                    dtype=torch.float32, device=self.device)
+                y_lev[..., lo:hi] = x00
             code = scale_code(scl)
             padH, padW = hdr.pad_flags[scl]
             for b in range(3):
                 self._band(y_lev, scl, b, padH, padW, code)
 
-        crop_h, crop_w = int(hdr.pad_flags[0][0]), int(hdr.pad_flags[0][1])
-        y_c = interleave_scale(y_lev, c, crop_h, crop_w)
-        ycocg = (torch.round(y_c[..., off:off + 3] * 255.0).to(torch.int32)
-                 + self._shift)
-        return ycocg, ycocg_r_int_to_rgb_int(ycocg).to(torch.uint8)
+        with span("llicti.wavelet"):
+            crop_h = int(hdr.pad_flags[0][0])
+            crop_w = int(hdr.pad_flags[0][1])
+            y_c = interleave_scale(y_lev, c, crop_h, crop_w)
+            ycocg = (torch.round(y_c[..., off:off + 3] * 255.0)
+                     .to(torch.int32) + self._shift)
+            return ycocg, ycocg_r_int_to_rgb_int(ycocg).to(torch.uint8)
 
     def _decode_queue(self, d: _DecodeInputs):
         """Queue a whole device-backend decode of K images: -> (YCoCg int32,
@@ -1076,9 +1120,10 @@ class Codec:
 
             def code(b, clr, pm, y2):
                 cum, _, _ = self._tables(b, clr, pm, y2, ranges, pts3)
-                syms = rans_decode(cum.view(K, -1, cum.shape[-1]), words,
-                                   d.states, offset)
-                return syms.view(-1) + ranges[clr][0]
+                with span("llicti.kernel2"):
+                    syms = rans_decode(cum.view(K, -1, cum.shape[-1]),
+                                       words, d.states, offset)
+                    return syms.view(-1) + ranges[clr][0]
             return code
 
         return self._decode_scales(d.hdr, d.raw, scale_code)
@@ -1092,7 +1137,7 @@ class Codec:
             self._decode_upload(hdr, words, states, split=True))
         return ycocg, rgb, hdr
 
-    @_pass
+    @_pass("llicti.decompress")
     def decompress_dispatch(self, streams: List[List[bytes]]):
         """Queue one image's decode; -> (RGB uint8 [1, H, W, 3] on the
         device at the padded size, orig_h, orig_w).  Nothing synchronises,
@@ -1101,7 +1146,7 @@ class Codec:
         _, rgb, hdr = self._dispatch(streams)
         return (rgb,) + hdr.origs[0]
 
-    @_pass
+    @_pass("llicti.decompress")
     def decompress(self, streams: List[List[bytes]],
                    xorg: Optional[np.ndarray] = None) -> np.ndarray:
         """Decode a single-image container of either backend back to
@@ -1130,7 +1175,7 @@ class Codec:
         org = rgb_int_to_ycocg_r_int(self._upload(xpad))
         return int((ycocg - org).abs().max())
 
-    @_pass
+    @_pass("llicti.decompress")
     def decompress_many(self, streams_list: Sequence[List[List[bytes]]]
                         ) -> List[np.ndarray]:
         """Pipelined decode of several single-image containers: every
@@ -1186,7 +1231,7 @@ class Codec:
             parse_batch_container(streams, self.cfg.dwtlevels),
             [g[0] for g in streams[1:]])
 
-    @_pass
+    @_pass("llicti.decompress")
     def decompress_batch(self, streams: List[List[bytes]]
                          ) -> List[np.ndarray]:
         """Decode a batch container -> K ``[H, W, 3]`` uint8 images, each

@@ -279,13 +279,13 @@ class ShardedCodec:
         Codec._account(self, done)  # the single codec's tables and sums
         return [streams for streams, _, _ in done]
 
-    @_pass
+    @_pass("llicti.compress")
     def compress(self, rgb: np.ndarray) -> List[List[bytes]]:
         """Encode one image (``[H, W, 3]`` or ``[1, H, W, 3]`` uint8); every
         rank of the mesh calls it with the same image."""
         return self.compress_many([rgb])[0]
 
-    @_pass
+    @_pass("llicti.compress")
     def compress_many(self, imgs: Sequence[np.ndarray]
                       ) -> List[List[List[bytes]]]:
         """Pipelined encode of several images, each into the container
@@ -306,7 +306,7 @@ class ShardedCodec:
             staged.append(self._stage(p, (oh, ow), lo + hi))
         return self._encode(staged, devs)
 
-    @_pass
+    @_pass("llicti.compress")
     def encode_inputs(self, rgb: np.ndarray):
         """The encoder's rANS chain of one image before it is encoded:
         (starts, freqs) int32 [g_local, n_total] of this rank's shards in
@@ -382,14 +382,14 @@ class ShardedCodec:
         ycocg, rgb = self._codec._decode_queue(d)
         return ycocg, all_gather_rows(rgb, 1, self.mesh.group)
 
-    @_pass
+    @_pass("llicti.decompress")
     def decompress_dispatch(self, streams: List[List[bytes]]):
         """Queue one image's decode; -> (device RGB uint8 [1, H, W, 3] at
         the padded size, orig_h, orig_w)."""
         d = self._decode_inputs(streams)
         return (self._decode_queue(d)[1],) + d.hdr.origs[0]
 
-    @_pass
+    @_pass("llicti.decompress")
     def decompress(self, streams: List[List[bytes]],
                    xorg: Optional[np.ndarray] = None) -> np.ndarray:
         """Decode -> ``[1, H, W, 3]`` uint8.  With ``xorg`` (the original
@@ -409,7 +409,7 @@ class ShardedCodec:
                                                     self.mesh.group)[1][0]
         return out[:, :oh, :ow]
 
-    @_pass
+    @_pass("llicti.decompress")
     def decompress_many(self, streams_list) -> List[np.ndarray]:
         """Pipelined decode: every container staged and every decode
         queued, then one synchronisation."""

@@ -19,6 +19,7 @@ from typing import Callable, Dict
 import torch
 from torch import nn
 
+from ..tracing import entry, span
 from ..training.steps import accumulate, apply_gradients
 from .distributed import all_reduce_sum
 from .mesh import Mesh, replicated
@@ -50,20 +51,24 @@ def make_parallel_train_step(model: nn.Module,
     params = list(model.parameters())
 
     def step(batch: torch.Tensor) -> Dict[str, torch.Tensor]:
-        acc = batch.shape[0]
-        optimizer.zero_grad(set_to_none=True)
-        loss_sum, bd_sum = accumulate(model, batch, batch[0].numel()
-                                      * mesh.size, mesh.halo)
-        with torch.no_grad():
-            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                     for p in params]
-            flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]))
-            for p, g in zip(params, flat.split([g.numel() for g in grads])):
-                p.grad = g.view_as(p).div_(acc)
-            metrics = all_reduce_sum(torch.cat((loss_sum[None],
-                                                bd_sum.reshape(-1))))
-        apply_gradients(optimizer, clip_value)
-        return {"loss": metrics[0] / acc,
-                "breakdown": metrics[1:].reshape(bd_sum.shape) / acc}
+        with entry("llicti.step"):
+            acc = batch.shape[0]
+            optimizer.zero_grad(set_to_none=True)
+            loss_sum, bd_sum = accumulate(model, batch, batch[0].numel()
+                                          * mesh.size, mesh.halo)
+            with span("llicti.allreduce"), torch.no_grad():
+                grads = [p.grad if p.grad is not None
+                         else torch.zeros_like(p) for p in params]
+                flat = all_reduce_sum(torch.cat([g.reshape(-1)
+                                                 for g in grads]))
+                for p, g in zip(params,
+                                flat.split([g.numel() for g in grads])):
+                    p.grad = g.view_as(p).div_(acc)
+                metrics = all_reduce_sum(torch.cat((loss_sum[None],
+                                                    bd_sum.reshape(-1))))
+            with span("llicti.optimizer", batch.device):
+                apply_gradients(optimizer, clip_value)
+            return {"loss": metrics[0] / acc,
+                    "breakdown": metrics[1:].reshape(bd_sum.shape) / acc}
 
     return step

@@ -18,6 +18,7 @@ from typing import Callable, Dict, Tuple
 import torch
 from torch import nn
 
+from ..tracing import entry, span
 from .loss import rate_loss_list
 
 
@@ -65,8 +66,10 @@ def accumulate(model: nn.Module, batch: torch.Tensor, numel: int,
     loss_sum = torch.zeros((), device=batch.device)
     bd_sum = torch.zeros((cfg.num_scales, width), device=batch.device)
     for xb in batch:
-        total, bd = rate_loss_list(numel, model(xb, halo))
-        total.backward()  # sums into .grad across microbatches
+        with span("llicti.forward", xb.device):
+            total, bd = rate_loss_list(numel, model(xb, halo))
+        with span("llicti.backward", xb.device):
+            total.backward()  # sums into .grad across microbatches
         loss_sum = loss_sum + total.detach()
         bd_sum = bd_sum + bd.detach()
     return loss_sum, bd_sum
@@ -85,15 +88,17 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     params = list(model.parameters())
 
     def step(batch: torch.Tensor) -> Dict[str, torch.Tensor]:
-        acc = batch.shape[0]
-        optimizer.zero_grad(set_to_none=True)
-        loss_sum, bd_sum = accumulate(model, batch, batch[0].numel())
-        with torch.no_grad():
-            for p in params:
-                if p.grad is not None:
-                    p.grad.div_(acc)
-        apply_gradients(optimizer, clip_value)
-        return {"loss": loss_sum / acc, "breakdown": bd_sum / acc}
+        with entry("llicti.step"):
+            acc = batch.shape[0]
+            optimizer.zero_grad(set_to_none=True)
+            loss_sum, bd_sum = accumulate(model, batch, batch[0].numel())
+            with span("llicti.optimizer", batch.device):
+                with torch.no_grad():
+                    for p in params:
+                        if p.grad is not None:
+                            p.grad.div_(acc)
+                apply_gradients(optimizer, clip_value)
+            return {"loss": loss_sum / acc, "breakdown": bd_sum / acc}
 
     return step
 
