@@ -1374,14 +1374,11 @@ def train_snapshot(model, opt):
     return params, grads, state
 
 
-def one_train_step(cfg, params, batch, device, channels_last=False):
+def one_train_step(cfg, params, batch, device):
     """One clip + Adam step of the trained flagship on ``batch`` [acc, B,
-    H, W, 3] -> (metrics on the CPU, snapshot).  ``channels_last``: the
-    model in ``torch.channels_last`` (its convs' inputs, permuted from
-    NHWC, already are)."""
+    H, W, 3] -> (metrics on the CPU, snapshot).  The step puts the model
+    in channels-last."""
     model = params_from_flax(params, cfg).to(device).train()
-    if channels_last:
-        model = model.to(memory_format=torch.channels_last)
     opt = make_optimizer(model, TRAIN_LR)
     step = make_train_step(model, opt)
     x = torch.from_numpy(batch).to(device)

@@ -13,7 +13,10 @@ channel groups through ``seq_toCo`` / ``seq_toCg``
 (:meth:`Interpolator.forward`) turns the parameter map into the
 self-information of the band to predict, for every configuration the
 JAX package trains (clrjnt 0 / 1 / 2, clrchs < 3, subtract_mean).  Public
-tensors are NHWC like the JAX package's; inside, the convs run NCHW.
+tensors are NHWC like the JAX package's; inside, the convs run in the
+memory format of the layer-0 kernels: NCHW as loaded (the codec's), or
+channels-last (the training step's), in which the NHWC bands need no
+transpose.
 The conditioning and predicted bands are data: no gradient flows into
 them, only into the parameters.
 """
@@ -138,13 +141,22 @@ class Interpolator(nn.Module):
         m = max(max(pad[2], pad[3]) for _, _, _, pad in specs)
         return halo(y_cond, m, m).permute(0, 3, 1, 2), specs, m
 
+    def _format(self, specs) -> torch.memory_format:
+        """The memory format of the layer-0 kernels: channels-last when a
+        kernel's channel stride is 1, which in NCHW it is not: no layer-0
+        kernel is 1x1 (Ev is even)."""
+        w = getattr(self, specs[0][1]).weight
+        return (torch.channels_last if w.stride(1) == 1
+                else torch.contiguous_format)
+
     def _base(self, y_cond: torch.Tensor, halo=None) -> torch.Tensor:
-        """Pre-activation layer-0 sum, NCHW."""
+        """Pre-activation layer-0 sum, NCHW in the kernels' memory
+        format."""
         x, specs, m = self._units(y_cond, halo)
-        c = self.c
+        c, fmt = self.c, self._format(specs)
         out = None
         for unit, name, _, pad in specs:
-            xb = x[:, unit * c:(unit + 1) * c].contiguous()
+            xb = x[:, unit * c:(unit + 1) * c].contiguous(memory_format=fmt)
             o = getattr(self, name)(_replicate(xb, pad, m))
             out = o if out is None else out + o
         return out
@@ -179,7 +191,8 @@ class Interpolator(nn.Module):
         return out, mean.permute(0, 2, 3, 1)
 
     def _head(self, base: torch.Tensor) -> torch.Tensor:
-        """Activation + trunk of an NCHW base -> NHWC contiguous pmap."""
+        """Activation + trunk of an NCHW base -> NHWC contiguous pmap (a
+        view, without a copy, of a channels-last trunk's output)."""
         h = self.trunk(self.act0(base))
         return h.permute(0, 2, 3, 1).contiguous()
 

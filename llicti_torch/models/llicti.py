@@ -6,11 +6,13 @@ through ``useprevlevNN`` (``cfg.model_index``); each shared model holds
 one network per band, or with ``combine_layers1toL`` one network (band
 -1) for all three bands.  :meth:`LLICTIModel.forward` is the training and
 validation forward (colour transform, mean shift, float lazy wavelet,
-per-scale self-information); it leaves the cuDNN / TF32 flags to the
-caller (a codec-equal forward on the card runs under
-:func:`llicti_torch.codec.exact_math`).  :meth:`LLICTIModel.aux_loss` sums
-the quantile loss of any factorized prior a band model holds (none in the
-live model, as in the JAX package).
+per-scale self-information); it sets no cuDNN / TF32 flag itself: the
+training step runs it with cuDNN's TF32 off
+(``training.steps.fp32_convs``), and a codec-equal forward on the card
+runs under :func:`llicti_torch.codec.exact_math`.
+:meth:`LLICTIModel.aux_loss` sums the quantile loss of any factorized
+prior a band model holds (none in the live model, as in the JAX
+package).
 """
 from __future__ import annotations
 

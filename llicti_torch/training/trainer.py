@@ -13,9 +13,13 @@ lifecycle (agents/base.py:13-150, agents/llicti_agent.py:14-207):
   ``torch.utils.flop_counter``.
 
 The trainer runs on the CUDA card unless it is given ``device="cpu"``.
-It sets no process-wide cuDNN or TF32 flag: the caller's apply (PyTorch's
-defaults let cuDNN use TF32); the codec of ``eval_model`` scopes its own
-(``codec.exact_math``).  Host batches are uploaded pinned and
+It sets no process-wide cuDNN or TF32 flag: the training step runs its
+forward and backward with cuDNN's TF32 off and restores the caller's
+value (``steps.fp32_convs``), the codec of ``eval_model`` scopes its own
+(``codec.exact_math``), and the validation forward runs under the
+caller's.  The step builders put the model in channels-last
+(``steps.to_channels_last``), and so does a checkpoint's load, for the
+Adam state it brings.  Host batches are uploaded pinned and
 ``non_blocking``.  With a mesh (``mesh=``, ``use_mesh=True``, or a
 config's ``num_data_shards > 1``; one process a card under ``torchrun``)
 the steps are data parallel: every rank's loader builds the same global
@@ -49,7 +53,7 @@ from ..utils.notify import Notifier
 from ..weights import flax_from_state_dict, init_params, params_from_flax
 from .schedule import ReduceLROnPlateau
 from .steps import (get_learning_rate, make_eval_step, make_optimizer,
-                    make_train_step, set_learning_rate)
+                    make_train_step, set_learning_rate, to_channels_last)
 
 
 def pad_to_multiple(x: np.ndarray, mult: int) -> np.ndarray:
@@ -193,6 +197,7 @@ class Trainer:
             raise
         self.model.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
+        to_channels_last(self.model, self.optimizer)
         self.current_epoch = meta.get("epoch", 0)
         self.current_iteration = meta.get("iteration", 0)
         self.best_valid_loss = meta.get("best_valid_loss", float("inf"))

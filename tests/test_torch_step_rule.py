@@ -23,6 +23,7 @@ from llicti_torch.parallel import dryrun
 from llicti_torch.training import (apply_gradients, make_optimizer,
                                    make_train_step)
 from llicti_torch.training.loss import rate_loss_list
+from llicti_torch.training.steps import accumulate
 from llicti_torch.weights import init_params, params_from_flax
 
 LR = 1e-4
@@ -57,24 +58,28 @@ def start(cfg, params, x=None):
 def step(state, x, flip=False, channels_last=False, float64=False):
     """One step on ``x`` from a copy of ``state``: (the parameters after
     it, the gradients it took).  ``flip``: each microbatch's images in
-    reverse order; ``channels_last``: the model in
-    ``torch.channels_last``; ``float64``: the step in float64, the bands
-    from the float32 transform (as ``bench_torch.gates.float64_step``
-    takes them)."""
-    model = copy.deepcopy(state[0])
+    reverse order; ``channels_last``: the step ``make_train_step``
+    builds, which puts the model in ``torch.channels_last``, else its
+    arithmetic on the model in NCHW; ``float64``: the step in float64, the
+    bands from the float32 transform (as
+    ``bench_torch.gates.float64_step`` takes them)."""
+    model = copy.deepcopy(state[0]).to(memory_format=torch.contiguous_format)
     if float64:
         model = model.double()
-    if channels_last:
-        model = model.to(memory_format=torch.channels_last)
     opt = make_optimizer(model, LR)
     opt.load_state_dict(copy.deepcopy(state[1].state_dict()))
-    if not float64:
-        make_train_step(model, opt)(x.flip(1) if flip else x)
+    x = x.flip(1) if flip else x
+    if channels_last:
+        make_train_step(model, opt)(x)
         return dryrun.model_step(model)
     opt.zero_grad(set_to_none=True)
-    for xb in x:
-        bands = [y.double() for y in model.transform(xb)]
-        rate_loss_list(xb.numel(), model.entropy_forward(bands))[0].backward()
+    if float64:
+        for xb in x:
+            bands = [y.double() for y in model.transform(xb)]
+            rate_loss_list(xb.numel(),
+                           model.entropy_forward(bands))[0].backward()
+    else:
+        accumulate(model, x, x[0].numel())
     for p in model.parameters():
         p.grad.div_(x.shape[0])
     apply_gradients(opt)

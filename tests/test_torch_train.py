@@ -2,7 +2,10 @@
 gradient, the rate-loss gradients, clip + Adam, grad accumulation, one
 train step against JAX's jitted step, the plateau schedule, the
 configuration files, the loaders, the rate table's text and the
-factorized prior.
+factorized prior; and the channels-last step ``make_train_step`` builds
+against the same step on the model in NCHW (``dryrun.step_rule`` at
+``GRAD_REL_L2``, float32 rounding in another order), and a codec of its
+trained weights against the same weights held NCHW (byte-equal).
 
 Tolerances: the rate-loss gradients in float64 on both sides, rtol 1e-7
 and atol 1e-9 * max|g| per tensor (the same arithmetic; why not float32
@@ -40,6 +43,7 @@ from llicti_torch import config as tconfig
 from llicti_torch.data import dataset as tdata
 from llicti_torch.ops.bounds import lower_bound
 from llicti_torch.ops.factorized import FactorizedPrior
+from llicti_torch.parallel import dryrun
 from llicti_torch.training import loss as tloss
 from llicti_torch.training import steps as tsteps
 from llicti_torch.training.schedule import ReduceLROnPlateau
@@ -265,6 +269,90 @@ def test_grad_acc_equivalent_to_big_batch():
     for n in s1:
         np.testing.assert_allclose(s1[n][0].numpy(), s2[n][0].numpy(),
                                    rtol=2e-4, atol=2e-6, err_msg=n)
+
+
+def nchw_step(model, opt, batch):
+    """``make_train_step``'s arithmetic on a model left in NCHW -> the
+    mean loss."""
+    opt.zero_grad(set_to_none=True)
+    loss, _ = tsteps.accumulate(model, batch, batch[0].numel())
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.grad is not None:
+                p.grad.div_(batch.shape[0])
+    tsteps.apply_gradients(opt, 5.0)
+    return loss / batch.shape[0]
+
+
+# llicti_B's widths (2 scales, chs 60, clrjnt 2) on 32x32 patches
+B_SHAPED = dict(chs=(60, 1))
+
+
+@pytest.mark.parametrize("case", ["llicti_B", "tiny_acc2_clrjnt0",
+                                  "llicti_B_resumed"])
+def test_channels_last_step_matches_nchw(case):
+    """``make_train_step`` puts the model in channels-last and gives, from
+    the same weights and batch, the loss and parameters of the same step
+    on the model in NCHW, within float32 rounding; with Adam's state
+    already held ("resumed": one NCHW step first), the state goes
+    channels-last too and the next step still agrees."""
+    cfg = tiny_cfg(**({"clr_joint_mode": 0, "clrjnt0seqmd": True}
+                      if case == "tiny_acc2_clrjnt0" else B_SHAPED))
+    flat = init_params(cfg, 4)
+    acc = 2 if case == "tiny_acc2_clrjnt0" else 1
+    batches = [torch.from_numpy(patches(4, 40 + 4 * i).reshape(
+        acc, 4 // acc, 32, 32, 3)) for i in range(2)]
+    lr = 1e-3
+    ref = params_from_flax(flat, cfg).train()
+    ref_opt = tsteps.make_optimizer(ref, lr)
+    model = params_from_flax(flat, cfg).train()
+    opt = tsteps.make_optimizer(model, lr)
+    if case == "llicti_B_resumed":
+        for m, o in ((ref, ref_opt), (model, opt)):
+            nchw_step(m, o, batches[0])
+        assert all(s["exp_avg"].is_contiguous() for s in opt.state.values())
+    params = list(model.parameters())
+    step = tsteps.make_train_step(model, opt)
+    assert [id(p) for p in model.parameters()] == [id(p) for p in params]
+    w = model.models[0][0].conv_00_11.weight
+    assert w.stride(1) == 1 and w.is_contiguous(
+        memory_format=torch.channels_last)
+    for s in opt.state.values():  # the resumed case's moments
+        assert all(s[k].stride() == p.stride() for k in ("exp_avg",
+                   "exp_avg_sq") for p in [w] if s[k].shape == w.shape)
+    x = batches[1]
+    got = float(step(x)["loss"])
+    want = float(nchw_step(ref, ref_opt, x))
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+    # float32 rounding: the gradients within the parallel comparison's
+    # relative L2, every parameter within Adam's rule (a gradient at
+    # rounding noise moves its parameter by up to lr either way)
+    r = dryrun.step_rule(*dryrun.model_step(model),
+                         *dryrun.model_step(ref), lr, dryrun.GRAD_REL_L2)
+    assert r["ok"], dryrun.rule_line(r)
+    for n, p in model.named_parameters():
+        if p.dim() == 4:
+            assert p.grad.stride() == p.stride(), n
+    assert w.stride(1) == 1  # the step left the layout as it found it
+
+
+def test_codec_of_channels_last_trained_params_is_byte_equal():
+    """A ``Codec`` built from a channels-last trained model's parameters
+    codes an image to the container that the same weights held NCHW
+    give."""
+    from llicti_torch.codec import Codec
+    from llicti_torch.weights import flax_from_state_dict
+    cfg = tiny_cfg(**B_SHAPED)
+    model = params_from_flax(init_params(cfg, 5), cfg).train()
+    tsteps.make_train_step(model, tsteps.make_optimizer(model, 1e-3))(
+        torch.from_numpy(patches(2, 50).reshape(1, 2, 32, 32, 3)))
+    state = model.state_dict()
+    assert state["models.0.0.conv_00_11.weight"].stride(1) == 1
+    nchw = {k: v.contiguous() for k, v in state.items()}
+    img = (patches(1, 60, P=64)[0, :, :48] * 255).round().astype(np.uint8)
+    got, want = (Codec(cfg, flax_from_state_dict(s, cfg), device="cpu",
+                       num_lanes=64).compress(img) for s in (state, nchw))
+    assert got == want
 
 
 def test_train_step_matches_jitted_jax_step():

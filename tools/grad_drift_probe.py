@@ -18,10 +18,10 @@ set, seed 1337), under ``exact_math()``.  Prints:
   (wgrad) by its name;
 * for each of band 2's layer-0 weights, the relative L2 distance of its
   gradient from the step's float64 gradient (``chip_smoke.float64_grads``)
-  when the step runs: on the card as it is; on the card with
+  when the step runs: on the card as it is (``make_train_step`` puts the
+  model in channels-last); on the card with
   ``torch.backends.cudnn.enabled = False`` for that call only (PyTorch's
-  own direct convolution, a yardstick); on the card with the model in
-  channels-last (other cuDNN engines); and on the CPU;
+  own direct convolution, a yardstick); and on the CPU;
 * the same conv's weight gradient alone, summed over its calls in the
   card step from the inputs and output gradients of that step: cuDNN in
   float32, PyTorch's direct convolution in float32, and cuDNN in float64
@@ -71,9 +71,7 @@ def no_cudnn():
         yield
 
 
-SETTINGS = {"as is": (exact_math, False),
-            "cudnn off": (no_cudnn, False),
-            "channels-last": (exact_math, True)}
+SETTINGS = {"as is": exact_math, "cudnn off": no_cudnn}
 
 
 def rel_l2(a: torch.Tensor, ref: torch.Tensor) -> float:
@@ -103,13 +101,10 @@ class Capture:
             h.remove()
 
 
-def train_step(cfg, params, batch, device, ctx, channels_last=False,
-               capture=()):
+def train_step(cfg, params, batch, device, ctx, capture=()):
     """One clip + Adam step of the trained flagship under ``ctx`` -> (the
     gradients on the CPU, Capture)."""
     model = params_from_flax(params, cfg).to(device).train()
-    if channels_last:
-        model = model.to(memory_format=torch.channels_last)
     cap = Capture(model, capture)
     step = make_train_step(model, make_optimizer(model, cs.TRAIN_LR))
     with ctx():
@@ -189,7 +184,7 @@ def print_kernels(label, found):
               f"{list(shapes[2])}")
 
 
-def step_ms(ctx, channels_last, runs):
+def step_ms(ctx, runs):
     """ms an optimiser step of paper_a's batch under ctx (CUDA events)."""
     cfg = ModelConfig()
     ds = ImageDataset(synthetic_len=64, synthetic_size=160,
@@ -197,8 +192,6 @@ def step_ms(ctx, channels_last, runs):
     x = torch.from_numpy(next(iter(TrainLoader(
         ds, 32, 160, grad_acc=2, seed=cs.TRAIN_SEED)))).cuda()
     model = params_from_flax(init_params(cfg, cs.TRAIN_SEED), cfg).cuda()
-    if channels_last:
-        model = model.to(memory_format=torch.channels_last)
     step = make_train_step(model, make_optimizer(model, cs.TRAIN_LR))
     times = []
     with ctx():
@@ -234,8 +227,8 @@ def main() -> None:
 
     # 2. band 2's layer-0 gradients against float64 under each setting
     grads = {}
-    for label, (ctx, cl) in SETTINGS.items():
-        grads[label], cap = train_step(cfg, params, batch, "cuda", ctx, cl,
+    for label, ctx in SETTINGS.items():
+        grads[label], cap = train_step(cfg, params, batch, "cuda", ctx,
                                        capture=BAND2 + TRUNK
                                        if label == "as is" else ())
         if label == "as is":
@@ -291,8 +284,8 @@ def main() -> None:
               f"{rel_l2(joined(cpu_cap, n), ref):.4g}")
 
     # 4. ms a paper_a step under each setting
-    for label, (ctx, cl) in SETTINGS.items():
-        med, lo, hi = step_ms(ctx, cl, args.runs)
+    for label, ctx in SETTINGS.items():
+        med, lo, hi = step_ms(ctx, args.runs)
         print(f"paper_a step (2 x 32 of 160^2), {label}: {med:.2f} ms "
               f"(min {lo:.2f}, max {hi:.2f}, median of {args.runs}); "
               f"{cs.card_line()}")

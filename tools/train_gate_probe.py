@@ -4,26 +4,24 @@ on the card.
 
 Usage: python3 tools/train_gate_probe.py [--seeds 42 7 1 2]
 
-For each seed and layout (NCHW, and the model in ``torch.channels_last``
-as ROADMAP B1 would run it; the batch is NHWC, whose permute already
-gives the convs channels-last inputs), the ``paper_a_train_step`` cell's
-model after its warm-up steps takes the first timed step on each of the
-cell's pinned loader batches, from a copy of the model and Adam state
-each time, under PyTorch's default flags (the timed step) and under
-``exact_math()`` (gate (i)'s step).  Prints each step's distances, as
-``bench_torch.gates`` reads them: (i) the exact step's loss (relative),
-largest gradient distance (relative L2, over the parameters) from the
-step in float64 and largest update distance from a plain Adam's on the
-float64 gradients; (ii) the timed step's loss, gradients and update
-against (i)'s, and its update against Adam on its own gradients ("own");
-then the worst of each over every step beside its bound.
+For each seed, the ``paper_a_train_step`` cell's model (which
+``make_train_step`` puts in channels-last) after its warm-up steps takes
+the first timed step on each of the cell's pinned loader batches, from a
+copy of the model and Adam state each time, under PyTorch's default
+flags (the timed step) and under ``exact_math()`` (gate (i)'s step).
+Prints each step's distances, as ``bench_torch.gates`` reads them: (i)
+the exact step's loss (relative), largest gradient distance (relative
+L2, over the parameters) from the step in float64 and largest update
+distance from a plain Adam's on the float64 gradients; (ii) the timed
+step's loss, gradients and update against (i)'s, and its update against
+Adam on its own gradients ("own"); then the worst of each over every
+step beside its bound.
 
 Then chip_smoke.py's phase 11 (a) (the trained flagship, one step on its
-[2, 2, 160, 160, 3] batch under ``exact_math()``, card against CPU) in
-NCHW and with the card's model in channels-last: each of its checks'
-readings beside its bound, and the step rule's (``dryrun.step_rule``)
-beside the old 99.9 %-within-1e-3-lr share.  The last line is the card's
-name and power limit.
+[2, 2, 160, 160, 3] batch under ``exact_math()``, card against CPU):
+each of its checks' readings beside its bound, and the step rule's
+(``dryrun.step_rule``) beside the old 99.9 %-within-1e-3-lr share.  The
+last line is the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -31,8 +29,6 @@ import argparse
 import copy
 import sys
 from pathlib import Path
-
-import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
@@ -100,31 +96,25 @@ def distances(model, opt, x, clip: float) -> dict:
 def gate_probe(seeds) -> None:
     cfg = train_cell.paper_a()
     clip = cfg.train.grad_clip_value
-    worst_of = {}
-    for layout in ("NCHW", "channels-last"):
-        rows = []
-        for seed in seeds:
-            hosts = train_cell._hosts(train_cell.loader_batches(
-                cfg, seed, train_cell.PINNED), "cuda")
-            model, opt = train_cell._model(cfg, "cuda")
-            if layout == "channels-last":
-                model = model.to(memory_format=torch.channels_last)
-            step = make_train_step(model, opt, clip)
-            for i in range(train_cell.WARMUP):
-                step(hosts[i % train_cell.PINNED].to("cuda"))
-            got = [distances(model, opt, h.to("cuda"), clip) for h in hosts]
-            rows += got
-            print(f"gate, {layout}, seed {seed}, the first step on each of "
-                  f"the {len(hosts)} pinned batches: " + " | ".join(
-                      f"{k} " + " ".join(f"{r[k]:.3g}" for r in got)
-                      for k in BOUNDS) + " | (ii) gradients' worst tensor "
-                  + " ".join(r["(ii) gradients at"] for r in got), flush=True)
-        worst_of[layout] = {k: max(r[k] for r in rows) for k in BOUNDS}
-        print(f"gate, {layout}, worst of {len(rows)} first steps: " + ", ".join(
-            f"{k} {v:.3g} (bound {BOUNDS[k]:g}, {BOUNDS[k] / v:.3g}x)"
-            for k, v in worst_of[layout].items()), flush=True)
-    print("gate, both layouts, worst: " + ", ".join(
-        f"{k} {max(w[k] for w in worst_of.values()):.3g}" for k in BOUNDS))
+    rows = []
+    for seed in seeds:
+        hosts = train_cell._hosts(train_cell.loader_batches(
+            cfg, seed, train_cell.PINNED), "cuda")
+        model, opt = train_cell._model(cfg, "cuda")
+        step = make_train_step(model, opt, clip)
+        for i in range(train_cell.WARMUP):
+            step(hosts[i % train_cell.PINNED].to("cuda"))
+        got = [distances(model, opt, h.to("cuda"), clip) for h in hosts]
+        rows += got
+        print(f"gate, seed {seed}, the first step on each of the "
+              f"{len(hosts)} pinned batches: " + " | ".join(
+                  f"{k} " + " ".join(f"{r[k]:.3g}" for r in got)
+                  for k in BOUNDS) + " | (ii) gradients' worst tensor "
+              + " ".join(r["(ii) gradients at"] for r in got), flush=True)
+    worst_of = {k: max(r[k] for r in rows) for k in BOUNDS}
+    print(f"gate, worst of {len(rows)} first steps: " + ", ".join(
+        f"{k} {v:.3g} (bound {BOUNDS[k]:g}, {BOUNDS[k] / max(v, 1e-300):.3g}x)"
+        for k, v in worst_of.items()), flush=True)
 
 
 def phase_11a_probe() -> None:
@@ -132,30 +122,27 @@ def phase_11a_probe() -> None:
     batch = cs.train_compare_batch()
     cpu = cs.one_train_step(cfg, params, batch, "cpu")
     g64 = cs.float64_grads(cfg, params, batch)
-    for cl in (False, True):
-        r = cs.card_cpu_readings(cs.one_train_step(
-            cfg, params, batch, "cuda", channels_last=cl), cpu, g64)
-        rule = r["rule"]
-        print(f"phase 11 (a), card {'channels-last' if cl else 'NCHW'} "
-              f"against the CPU: loss {r['loss_rel']:.3g} (bound 1e-5, "
-              f"{1e-5 / max(r['loss_rel'], 1e-300):.3g}x); breakdown "
-              f"{r['breakdown_rel']:.3g} (1e-4, "
-              f"{1e-4 / max(r['breakdown_rel'], 1e-300):.3g}x); gradient "
-              f"deviation {r['grad_dev']:.3g} of max|g_cpu| "
-              f"({r['grad_dev_tensor']}; 1e-2, {1e-2 / r['grad_dev']:.3g}x); "
-              f"gradients against float64 at worst "
-              f"{r['float64_l2_worst']:.3g} (GRAD_L2_BOUND "
-              f"{gates.GRAD_L2_BOUND:g}, "
-              f"{gates.GRAD_L2_BOUND / r['float64_l2_worst']:.3g}x); Adam "
-              f"steps {r['adam_steps']}; step rule (NOISE_SIGMAS "
-              f"{dryrun.NOISE_SIGMAS:g}): {dryrun.rule_line(rule)}; margins "
-              f"gradients {rule['grad_bound'] / rule['grad_rel_l2']:.3g}x, "
-              f"noise {1 / max(rule['beyond_signal_ratio'], 1e-300):.3g}x; "
-              f"passes: {rule['ok']}", flush=True)
-        print(f"phase 11 (a), card {'channels-last' if cl else 'NCHW'}, "
-              "each gradient against float64 (card, CPU): " + ", ".join(
-                  f"{n} {a:.3g} {b:.3g}"
-                  for n, (a, b) in r["float64_l2"].items()), flush=True)
+    r = cs.card_cpu_readings(cs.one_train_step(
+        cfg, params, batch, "cuda"), cpu, g64)
+    rule = r["rule"]
+    print(f"phase 11 (a), card against the CPU: loss {r['loss_rel']:.3g} "
+          f"(bound 1e-5, {1e-5 / max(r['loss_rel'], 1e-300):.3g}x); breakdown "
+          f"{r['breakdown_rel']:.3g} (1e-4, "
+          f"{1e-4 / max(r['breakdown_rel'], 1e-300):.3g}x); gradient "
+          f"deviation {r['grad_dev']:.3g} of max|g_cpu| "
+          f"({r['grad_dev_tensor']}; 1e-2, {1e-2 / r['grad_dev']:.3g}x); "
+          f"gradients against float64 at worst "
+          f"{r['float64_l2_worst']:.3g} (GRAD_L2_BOUND "
+          f"{gates.GRAD_L2_BOUND:g}, "
+          f"{gates.GRAD_L2_BOUND / r['float64_l2_worst']:.3g}x); Adam "
+          f"steps {r['adam_steps']}; step rule (NOISE_SIGMAS "
+          f"{dryrun.NOISE_SIGMAS:g}): {dryrun.rule_line(rule)}; margins "
+          f"gradients {rule['grad_bound'] / rule['grad_rel_l2']:.3g}x, "
+          f"noise {1 / max(rule['beyond_signal_ratio'], 1e-300):.3g}x; "
+          f"passes: {rule['ok']}", flush=True)
+    print("phase 11 (a), card, each gradient against float64 (card, "
+          "CPU): " + ", ".join(f"{n} {a:.3g} {b:.3g}" for n, (a, b)
+                               in r["float64_l2"].items()), flush=True)
 
 
 def main() -> None:
