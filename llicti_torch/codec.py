@@ -673,7 +673,8 @@ class Codec:
                     # this colour's params from the pixel's colours decoded
                     # so far: both directions run the trunk on the same
                     # shapes
-                    with span("llicti.interp"):
+                    with span("llicti.interp"), \
+                            span("llicti.seq", self.device):
                         pm = coded_rows(self.model.band_params_seq(
                             base, y_lev[..., sch0:sch0 + 2], scl, b, clr))
                 # rebuilt per colour: decode writes each colour back before

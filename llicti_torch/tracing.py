@@ -13,9 +13,11 @@ Entry spans (:func:`entry`) mark the outermost public call: a codec pass
 (``llicti.step``); a pass called from another pass opens none of its own.
 The spans of the codec's layers are ``llicti.stage``,
 ``llicti.host_header``, ``llicti.unpack``, ``llicti.upload``,
-``llicti.wavelet``, ``llicti.band``, ``llicti.interp``, ``llicti.kernel1``,
-``llicti.kernel2``, ``llicti.kernel3``, ``llicti.fetch``, ``llicti.wait``
-and ``llicti.pack``; those of the step ``llicti.forward``,
+``llicti.wavelet``, ``llicti.band``, ``llicti.interp`` (and inside it,
+with clrjnt0seqmd, ``llicti.seq``: one colour's sequential convs and
+trunk, timed on the device), ``llicti.kernel1``, ``llicti.kernel2``,
+``llicti.kernel3``, ``llicti.fetch``, ``llicti.wait`` and
+``llicti.pack``; those of the step ``llicti.forward``,
 ``llicti.backward``, ``llicti.optimizer`` and, across cards,
 ``llicti.allreduce``.
 
