@@ -53,9 +53,13 @@ Phases, each of which raises on failure:
      K = 1's with each bound, and the card's resident decode clusters
      (cudaOccupancyMaxActiveClusters); (b) the batch container of the
      eight: compress_batch -> serialize -> deserialize -> decompress_batch
-     lossless, 45 Kernel 2 launches and at most 2 of Kernel 3, eight
-     copies of one image giving eight identical blobs, and
-     prepare_decode_batch's closure; (c) compress_many / decompress_many
+     lossless, 45 Kernel 2 launches and at most 2 of Kernel 3, its
+     sha256 BATCH_SHA (the container of the same images when the trunk
+     ran at batch K), every (scale, band) parameter map of the eight
+     from the trunk at batch 1 (band_params_batched, the batch's path)
+     bit-equal to the one at batch K (band_params), eight copies of one
+     image giving eight identical blobs, and prepare_decode_batch's
+     closure; (c) compress_many / decompress_many
      of six images, byte-equal to six compress calls with equal per-image
      accounting; (d) prepare_decode / prepare_encode closures equal to the
      wire paths, one call of each under set_sync_debug_mode("error") and a
@@ -1009,6 +1013,23 @@ def no_copy_call(fns):
     return len(device), copies
 
 
+def batch1_maps(codec, imgs) -> int:
+    """Check every (scale, band) parameter map of a batch from the trunk
+    at batch 1 (the codec's path for K > 1) bit-equal to the trunk's at
+    batch K; -> the number of maps."""
+    c = codec.cfg.cond_channels
+    with torch.inference_mode(), exact_math():
+        y_list = codec._front(torch.from_numpy(np.stack(imgs)).cuda())
+        for scl, y_lev in enumerate(y_list):
+            for b in range(3):
+                y = y_lev[..., :c * (b + 1)].contiguous()
+                check(torch.equal(codec.model.band_params_batched(y, scl, b),
+                                  codec.model.band_params(y, scl, b)),
+                      f"scale {scl} band {b}: the trunk at batch 1 changed "
+                      "the parameter map")
+    return 3 * len(y_list)
+
+
 def serving_phase(codec, params, kres, counters):
     """The serving path: batched kernels, the batch container, pipelined
     calls, resident closures, size_bucket and two_stage, each driven with
@@ -1035,6 +1056,9 @@ def serving_phase(codec, params, kres, counters):
           and got["gmm_cdf_from_pmap"] > 0,
           f"batch encode launches {got}: Kernel 3 at most 2, Kernel 2 none")
     blob = Codec.serialize(streams)
+    batch_sha = hashlib.sha256(blob).hexdigest()
+    check(batch_sha == BATCH_SHA, f"the batch container's sha256 "
+          f"{batch_sha} is not {BATCH_SHA}")
     reset_counts(counters)
     outs, dec_ms = timed(lambda: codec.decompress_batch(
         Codec.deserialize(blob)))
@@ -1050,10 +1074,14 @@ def serving_phase(codec, params, kres, counters):
     trip = {"bytes": len(blob), "encode_ms_an_image": enc_ms / BATCH_K,
             "decode_ms_an_image": dec_ms / BATCH_K}
     print(f"serving: batch container K={BATCH_K} 512x768: lossless, "
+          f"sha256 {batch_sha}, "
           f"{len(blob)} bytes ({bpsp:.4f} bpsp; blobs {sizes}), encode "
           f"{enc_ms:.2f} ms ({enc_ms / BATCH_K:.2f} an image), decode "
           f"{dec_ms:.2f} ms ({dec_ms / BATCH_K:.2f} an image), launches "
           f"encode {got} decode {dgot}, peak memory {peak_mib():.1f} MiB")
+    print(f"serving: {batch1_maps(codec, imgs)} (scale, band) parameter "
+          f"maps of the {BATCH_K} with the trunk at batch 1 bit-equal to "
+          f"batch {BATCH_K}'s")
     same = codec.compress_batch([imgs[0]] * BATCH_K)
     check(all(g == same[1] for g in same[2:]),
           "eight copies of one image gave different blobs")
@@ -1177,6 +1205,10 @@ def serving_phase(codec, params, kres, counters):
 # digits), and the JAX package's num_bytes of the same image, weights and
 # N = 1024 on the CPU (use_pallas_cdf=False)
 FLAGSHIP_SHA = ("3cab0436", "9336cc")
+# the serving phase's batch container of eight images, as the codec wrote
+# it with the trunk at batch K
+BATCH_SHA = ("068327b06416e39b6efb6ee5f0926a61"
+             "77159b7d7770a043ddfdd1745bb4f689")
 JAX_FLAGSHIP_BYTES = 861_767
 RATE_ATOL = 0.01  # bits: the card's self-information maps against the CPU's
 FLAGS = ("cudnn.allow_tf32", "cuda.matmul.allow_tf32", "cudnn.benchmark",

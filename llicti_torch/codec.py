@@ -39,8 +39,11 @@ codec neither depends on nor changes the process's settings.  cuDNN may
 pick another algorithm for another batch size, so an image's tables in a
 batch of K need not equal its tables alone: a batch container decodes
 only through the batch path (:meth:`Codec.decompress_batch`), at its own
-K, and a single container only through the single path.  ``num_lanes``, like K,
-is matched between encoder and decoder; the container records neither.
+K, and a single container only through the single path.  On the card a
+batch of K > 1 runs the interpolator's trunk at batch 1, the K images
+stacked along the height (:meth:`Interpolator.get_params_batched`), in
+both directions.  ``num_lanes``, like K, is matched between encoder and
+decoder; the container records neither.
 ``two_stage`` runs the same convs and kernels on the same shapes, so its
 streams equal the fused codec's and each decodes the other's.
 
@@ -664,6 +667,13 @@ class Codec:
             with span("llicti.interp"):
                 if seq:
                     base = self.model.band_base(y_cond, scl, b, self._halo)
+                elif K > 1 and self._halo is None \
+                        and self.device.type == "cuda":
+                    # the trunk at batch 1, where cuDNN launches no
+                    # transposes around its last conv
+                    with span("llicti.stack"):
+                        pm = coded_rows(self.model.band_params_batched(
+                            y_cond, scl, b))
                 else:
                     pm = coded_rows(self.model.band_params(y_cond, scl, b,
                                                            self._halo))

@@ -9,7 +9,8 @@ layer-0 convs and picks them by the conditioning channel count.  With
 clrjnt0seqmd, the current pixel's earlier colours feed the later colours'
 channel groups through ``seq_toCo`` / ``seq_toCg``
 (:meth:`Interpolator.params_from_base`).  The codec path calls
-:meth:`Interpolator.get_params`; the rate forward
+:meth:`Interpolator.get_params` (a batch of K > 1 images on the card
+:meth:`Interpolator.get_params_batched`); the rate forward
 (:meth:`Interpolator.forward`) turns the parameter map into the
 self-information of the band to predict, for every configuration the
 JAX package trains (clrjnt 0 / 1 / 2, clrchs < 3, subtract_mean).  Public
@@ -149,15 +150,20 @@ class Interpolator(nn.Module):
         return (torch.channels_last if w.stride(1) == 1
                 else torch.contiguous_format)
 
+    def _unit_convs(self, y_cond: torch.Tensor, halo=None):
+        """Layer 0's conv of each conditioning band unit in turn, NCHW in
+        the kernels' memory format."""
+        x, specs, m = self._units(y_cond, halo)
+        c, fmt = self.c, self._format(specs)
+        for unit, name, _, pad in specs:
+            xb = x[:, unit * c:(unit + 1) * c].contiguous(memory_format=fmt)
+            yield getattr(self, name)(_replicate(xb, pad, m))
+
     def _base(self, y_cond: torch.Tensor, halo=None) -> torch.Tensor:
         """Pre-activation layer-0 sum, NCHW in the kernels' memory
         format."""
-        x, specs, m = self._units(y_cond, halo)
-        c, fmt = self.c, self._format(specs)
         out = None
-        for unit, name, _, pad in specs:
-            xb = x[:, unit * c:(unit + 1) * c].contiguous(memory_format=fmt)
-            o = getattr(self, name)(_replicate(xb, pad, m))
+        for o in self._unit_convs(y_cond, halo):
             out = o if out is None else out + o
         return out
 
@@ -202,6 +208,40 @@ class Interpolator(nn.Module):
         rows, the exchange that gives it its neighbours' boundary rows
         (``parallel.halo.halo_rows``); None for a whole image."""
         return self._head(self._base(y_cond, halo))
+
+    def get_params_batched(self, y_cond: torch.Tensor) -> torch.Tensor:
+        """:meth:`get_params` of a batch of K whole images, with the
+        activation and the trunk at batch 1: layer 0's sum is written
+        channel-major, ``[Ch, K, h, w]``, and the trunk runs on it as one
+        image of the K stacked along the height, ``[1, Ch, K*h, w]``.  A
+        1x1 conv sums over one pixel's channels, so every pixel gets the
+        sum it gets in a batch of K; at N > 1 cuDNN runs the trunk's last
+        grouped conv (Ch -> Co) between ``genericTranspose`` kernels, at
+        N = 1 the same conv kernels without them.  The unit sums keep
+        their order, ``(o0 + o1) + o2``.  Inference only (``out=`` takes
+        no gradient)."""
+        convs = self._unit_convs(y_cond)
+        first = next(convs).transpose(0, 1)
+        Ch, K, h, w = first.shape
+        base = first.new_empty(first.shape)
+        second = next(convs, None)
+        if second is None and type(self.act0) is nn.ReLU:
+            # ReLU is clamp_min: one pass writes it channel-major
+            torch.clamp_min(first, 0, out=base)
+            del first
+        else:
+            if second is None:
+                base.copy_(first)
+            else:
+                torch.add(first, second.transpose(0, 1), out=base)
+            # each unit's map is freed once it is added
+            del first, second
+            for unit in convs:
+                base.add_(unit.transpose(0, 1))
+                del unit
+            base = self.act0(base.view(1, Ch, K * h, w))
+        out = self.trunk(base.view(1, Ch, K * h, w))
+        return out.permute(0, 2, 3, 1).contiguous().view(K, h, w, -1)
 
     def band_base(self, y_cond: torch.Tensor, halo=None) -> torch.Tensor:
         """clrjnt0seqmd codec path: the pre-activation layer-0 map

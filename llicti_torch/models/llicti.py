@@ -59,6 +59,12 @@ class LLICTIModel(nn.Module):
         :meth:`forward`."""
         return self._band_model(scale, band).get_params(y_cond, halo)
 
+    def band_params_batched(self, y_cond: torch.Tensor, scale: int,
+                            band: int) -> torch.Tensor:
+        """:meth:`band_params` of K whole images, the trunk at batch 1
+        (:meth:`Interpolator.get_params_batched`)."""
+        return self._band_model(scale, band).get_params_batched(y_cond)
+
     def band_base(self, y_cond: torch.Tensor, scale: int, band: int,
                   halo=None) -> torch.Tensor:
         """Pre-activation layer-0 map (clrjnt0seqmd codec path)."""

@@ -15,7 +15,9 @@ The spans of the codec's layers are ``llicti.stage``,
 ``llicti.host_header``, ``llicti.unpack``, ``llicti.upload``,
 ``llicti.wavelet``, ``llicti.band``, ``llicti.interp`` (and inside it,
 with clrjnt0seqmd, ``llicti.seq``: one colour's sequential convs and
-trunk, timed on the device), ``llicti.kernel1``, ``llicti.kernel2``,
+trunk, timed on the device; for a batch of K > 1 on the card,
+``llicti.stack``: the band's interpolator with its trunk at batch 1),
+``llicti.kernel1``, ``llicti.kernel2``,
 ``llicti.kernel3``, ``llicti.fetch``, ``llicti.wait`` and
 ``llicti.pack``; those of the step ``llicti.forward``,
 ``llicti.backward``, ``llicti.optimizer`` and, across cards,
