@@ -21,7 +21,7 @@ Phases, each of which raises on failure:
      on the image's whole 45-slice chain (Codec.encode_inputs) in one
      call; each kernel's bound (bytes over 3.35 TB/s or float operations
      over 67 TFLOP/s, the H100 SXM's published peaks) is computed from the
-     inputs timed, with the work counts of bench_torch/work.py;
+     inputs timed, with the work counts of llbench/work.py;
   3b. the rANS decode against its plain version on synthetic tables of
      P = 2 ... 513 with rows below cum[0] and at or above cum[P-2], n not a
      multiple of N, N = 1000 and 1024: random states and words, and a round
@@ -89,9 +89,10 @@ Phases, each of which raises on failure:
      [2, 2, 160, 160, 3] TrainLoader batch (synthetic set, seed 1337) under
      exact_math on the card and on the CPU: the loss within 1e-5 and the
      breakdown within 1e-4 relative, every gradient within 1e-2 of its
-     max|g_cpu| and card and CPU alike within GRAD_L2_BOUND (relative L2,
-     the benchmark gate's bound under exact_math) of the step's float64
-     gradient, Adam's step count, and the step rule of
+     max|g_cpu| and card and CPU alike within
+     dryrun.FLOAT64_GRAD_REL_L2 (relative L2, under exact_math) of the
+     step's float64 gradient (dryrun.float64_step), Adam's step count,
+     and the step rule of
      llicti_torch.parallel.dryrun (step_rule: the gradients within
      CARD_CPU_GRAD_REL_L2 of the CPU's, every parameter within 2 lr, and
      beyond 1e-3 lr only where the float64 gradient is float noise), its
@@ -177,6 +178,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -190,20 +192,20 @@ from llicti_torch.config import (DataConfig, LLICTIConfig, TrainConfig,
                                  config_from_json, replace)
 from llicti_torch.data import ImageDataset, TrainLoader, load_rgb
 from llicti_torch.ops import cdf
+from llicti_torch.ops.bounds import lower_bound
 from llicti_torch.ops.color import rgb_int_to_ycocg_r_int
-from llicti_torch.ops.gmm import cdf_sampling_points
+from llicti_torch.ops.gmm import SCALE_BOUND_NORMAL, cdf_sampling_points
 from llicti_torch.ops.wavelet import lazy_dwt
 from llicti_torch.parallel import (ShardedCodec, dryrun, initialize,
                                    make_sp_mesh)
+from llicti_torch.parallel.dryrun import FLOAT64_GRAD_REL_L2, float64_step
 from llicti_torch.training import Trainer, make_optimizer, make_train_step
-from llicti_torch.training.loss import rate_loss_list
 from llicti_torch.utils import CheckpointManager
 from llicti_torch.weights import BENCH_PARAMS, init_params, params_from_flax
 
-from bench_torch.gates import GRAD_L2_BOUND
-from bench_torch.work import (bound, cdf_pmap_saturated, cdf_pmap_work,
-                              cdf_table_saturated, cdf_table_work,
-                              rans_decode_bytes, rans_encode_bytes)
+from llbench.work import (ENTRY_OPS, F32_FLOP_PER_S, HBM_BYTES_PER_S,
+                          NORMAL_OPS, NORMAL_SAT_OPS, bound_s, cdf_work,
+                          rans_decode_bytes, rans_encode_bytes)
 
 # (label, ModelConfig knobs, trained weights?, also 310x598?)
 VARIANTS = [
@@ -263,6 +265,50 @@ def max_abs(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.long() - b.long()).abs().max()) if a.numel() else 0
 
 
+def bound(nbytes: float, flops: float) -> Tuple[float, str]:
+    """(``bound_s`` in ms, what sets it: "bytes" or "operations")."""
+    by_bytes = nbytes / HBM_BYTES_PER_S >= flops / F32_FLOP_PER_S
+    return 1e3 * bound_s(nbytes, flops), "bytes" if by_bytes else "operations"
+
+
+# float operations of one logistic mixture term (csrc/cdf.cuh)
+LOGISTIC_OPS = 8
+
+
+def cdf_pmap_saturated(pts: torch.Tensor, pm: torch.Tensor,
+                       y2: torch.Tensor, spec) -> int:
+    """Normal mixture terms of Kernel 1 on these inputs whose erf
+    saturates (|z| / sqrt(2) > 10.5, the shortcut of csrc/cdf.cuh)."""
+    M, s0, m0, _, upd = spec
+    std = lower_bound(pm[:, s0:s0 + M], SCALE_BOUND_NORMAL)
+    mean = pm[:, m0:m0 + M]
+    for coef0, ych in upd:
+        mean = mean + pm[:, coef0:coef0 + M] * y2[:, ych:ych + 1]
+    inv = 1.0 / std
+    sat = 0
+    for x in range(M):
+        z = (pts[None, :] - mean[:, x:x + 1]) * inv[:, x:x + 1]
+        sat += int(((z * cdf._SQRT2_INV).abs() > 10.5).sum())
+    return sat
+
+
+def cdf_table_saturated(pts: torch.Tensor, stdevs: torch.Tensor,
+                        means: torch.Tensor) -> int:
+    """Saturated normal terms of Kernel 4 on pre-sliced parameters."""
+    z = (pts[None, None, None, None, :] - means[..., None]) \
+        / lower_bound(stdevs, SCALE_BOUND_NORMAL)[..., None]
+    return int(((z * cdf._SQRT2_INV).abs() > 10.5).sum())
+
+
+def cdf_table_work(rows: int, P: int, X: int,
+                   saturated: int) -> Tuple[int, int]:
+    """(bytes, float operations) of Kernel 4: three parameters of each of
+    the X mixtures a pixel read, the points read, the table written."""
+    flops = ((rows * P * X - saturated) * NORMAL_OPS
+             + saturated * NORMAL_SAT_OPS + rows * P * ENTRY_OPS)
+    return 4 * (3 * rows * X + P + rows * P), flops
+
+
 def kernel_phase(codec, img):
     """Kernels vs plain versions at the finest band of ``img``; per kernel
     (max |d|, mean ms, mean plain ms, bound ms, bound_by)."""
@@ -314,7 +360,9 @@ def kernel_phase(codec, img):
         ms = cuda_ms(lambda: cdf.gmm_cdf_from_pmap(*args), 20)
         plain_ms = cuda_ms(lambda: cdf.gmm_cdf_from_pmap_plain(*args), 5)
         sat = 0 if logistic else cdf_pmap_saturated(pts, pm, y2, spec)
-        nbytes, flops = cdf_pmap_work(n, P, spec, sch, sat, logistic)
+        nbytes, flops = cdf_work(n, P, spec, sch, sat)
+        if logistic:  # every term in full
+            flops = n * P * (M * LOGISTIC_OPS + ENTRY_OPS)
         bnd = bound(nbytes, flops)
         report(label, P, err, mism, size, ms, plain_ms, bnd,
                f"; {sat} of {n * P * M} mixture terms saturated "
@@ -1419,22 +1467,6 @@ def one_train_step(cfg, params, batch, device):
     return ({k: v.cpu() for k, v in m.items()}, train_snapshot(model, opt))
 
 
-def float64_grads(cfg, params, batch):
-    """The train step's gradients (summed over the microbatches, divided,
-    clipped at 5) in float64 on the CPU, from the float32 model's bands,
-    so that the function is the float32 step's (YCoCg-R's rounding ties
-    fall differently in float64)."""
-    model32 = params_from_flax(params, cfg)
-    model = params_from_flax(params, cfg).double()
-    for xb in torch.from_numpy(batch):
-        with torch.no_grad():
-            bands = [y.double() for y in model32.transform(xb)]
-        total, _ = rate_loss_list(xb.numel(), model.entropy_forward(bands))
-        total.backward()
-    return {n: (p.grad / len(batch)).clamp(-5.0, 5.0)
-            for n, p in model.named_parameters()}
-
-
 def train_compare_batch():
     """Phase 11 (a)'s loader batch [2, 2, 160, 160, 3]."""
     ds = ImageDataset(synthetic_len=4, synthetic_size=160, seed=TRAIN_SEED)
@@ -1484,9 +1516,10 @@ def check_card_cpu(r: dict) -> None:
     check(r["grad_dev"] <= 1e-2, "train step: a gradient of the card "
           "differs from the CPU's by more than 1e-2 of its max|g_cpu|")
     for n, (card, cpu) in r["float64_l2"].items():
-        check(max(card, cpu) <= GRAD_L2_BOUND, f"train step: the gradient of "
-              f"{n} is further than {GRAD_L2_BOUND} (relative L2) from the "
-              f"float64 one: card {card:.3g}, CPU {cpu:.3g}")
+        check(max(card, cpu) <= FLOAT64_GRAD_REL_L2, f"train step: the "
+              f"gradient of {n} is further than {FLOAT64_GRAD_REL_L2} "
+              f"(relative L2) from the float64 one: card {card:.3g}, CPU "
+              f"{cpu:.3g}")
     check(r["rule"]["ok"], f"train step: the card's step against the CPU's "
           f"fails the step rule: {dryrun.rule_line(r['rule'])}")
     check(r["adam_steps"] == [1.0], f"train step: Adam's step count "
@@ -1498,8 +1531,8 @@ def train_compare(counters) -> None:
     CPU from the same trained weights and the same loader batch: the loss
     within 1e-5 and the breakdown within 1e-4 relative, every gradient
     within 1e-2 of its max|g_cpu| and, card and CPU alike, within
-    GRAD_L2_BOUND (the exact-math bound of the benchmark's gate) of the
-    step's float64 gradient, Adam's step count, and the step rule
+    FLOAT64_GRAD_REL_L2 (the bound under exact_math) of the step's float64
+    gradient (``dryrun.float64_step``), Adam's step count, and the step rule
     (``dryrun.step_rule``: gradients within CARD_CPU_GRAD_REL_L2 of the
     CPU's, every parameter within 2 lr, beyond 1e-3 lr only where the
     float64 gradient is float noise).  Prints the readings, the old
@@ -1520,7 +1553,9 @@ def train_compare(counters) -> None:
     t0 = time.perf_counter()
     cpu = one_train_step(cfg, params, batch, "cpu")
     cpu_s = time.perf_counter() - t0
-    r = card_cpu_readings(gpu, cpu, float64_grads(cfg, params, batch))
+    _, g64 = float64_step(params_from_flax(params, cfg),
+                          torch.from_numpy(batch), 5.0)
+    r = card_cpu_readings(gpu, cpu, g64)
     print(f"train step [2, 2, 160, 160, 3], trained flagship, lr "
           f"{TRAIN_LR}: card {gpu_s:.2f} s (first call), CPU {cpu_s:.2f} s; "
           f"loss card {float(gpu[0]['loss']):.6f} CPU "
@@ -1529,7 +1564,8 @@ def train_compare(counters) -> None:
           f"largest gradient deviation {r['grad_dev']:.3g} of the tensor's "
           f"max|g_cpu| ({r['grad_dev_tensor']}; bound 1e-2); gradients "
           f"against float64 at worst {r['float64_l2_worst']:.3g} relative "
-          f"L2 (bound {GRAD_L2_BOUND:g}); a second card step bit-identical: "
+          f"L2 (bound {FLOAT64_GRAD_REL_L2:g}); a second card step "
+          f"bit-identical: "
           f"{not differ} ({len(differ)} gradient tensors differ"
           f"{': ' if differ else ''}{', '.join(differ[:4])})")
     print(f"train step, card against CPU, step rule: "

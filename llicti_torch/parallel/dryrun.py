@@ -58,6 +58,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import dataclasses
 import faulthandler
 import hashlib
@@ -129,6 +130,15 @@ EVENT_ITERS = 20  # collectives a CUDA-event timing averages
 # card's; phase 11 (a) 0.027, channels-last 0.045).
 GRAD_REL_L2 = 1e-5
 CARD_CPU_GRAD_REL_L2 = 3e-4
+# A float32 step's gradients under exact_math() against float64_step's
+# from the same state and batch, relative L2, each tensor.  At least 3x
+# the worst of 64 first steps of configs/paper_a.json from random weights
+# on an NVIDIA H100, 700 W (4 seeds x 8 loader batches, the model in NCHW
+# and in channels-last): 1.34e-4.  chip_smoke.py's phase 11 (a) holds the
+# trained flagship to it (near a minimum, where a gradient is a small sum
+# of large cancelling terms): 7.98e-4 on the card, 5.33e-4 in
+# channels-last.
+FLOAT64_GRAD_REL_L2 = 3e-3
 NOISE_GRAD = 1e-6
 NOISE_SIGMAS = 50.0
 
@@ -688,6 +698,30 @@ def model_step(model) -> Tuple[list, list]:
     :func:`step_rule`."""
     params = list(model.parameters())
     return params, [p.grad for p in params]
+
+
+def float64_step(model: torch.nn.Module, batch: torch.Tensor,
+                 clip_value: float) -> Tuple[float, Dict[str, torch.Tensor]]:
+    """The reference of one train step: the loss and the clipped
+    gradients that ``make_train_step`` takes on ``batch`` [acc, B, H, W,
+    3] (the microbatches' gradients summed, divided by acc, clipped at
+    +-``clip_value``; the loss their mean), computed in float64 on the
+    model's device from a copy of ``model``.  The bands come from the
+    float32 ``model``, so that the function is the float32 step's
+    (YCoCg-R's rounding ties fall differently in float64)."""
+    m64 = copy.deepcopy(model).double()
+    m64.zero_grad(set_to_none=True)
+    total = 0.0
+    for xb in batch:
+        with torch.no_grad():
+            bands = [y.double() for y in model.transform(xb)]
+        loss, _ = rate_loss_list(xb.numel(), m64.entropy_forward(bands))
+        loss.backward()
+        total += float(loss.detach())
+    acc = batch.shape[0]
+    grads = {n: (p.grad / acc).clamp(-clip_value, clip_value)
+             for n, p in m64.named_parameters()}
+    return total / acc, grads
 
 
 def halo_gather(model, x: torch.Tensor, mesh) -> dict:

@@ -22,11 +22,11 @@ from llicti_torch.models.llicti import LLICTIModel
 from llicti_torch.parallel import dryrun
 from llicti_torch.training import (apply_gradients, make_optimizer,
                                    make_train_step)
-from llicti_torch.training.loss import rate_loss_list
 from llicti_torch.training.steps import accumulate
 from llicti_torch.weights import init_params, params_from_flax
 
 LR = 1e-4
+CLIP = 5.0  # apply_gradients' default, as make_train_step clips
 TINY = ModelConfig(**torch_helpers.TINY)
 MODELS = {"tiny": (TINY, lambda: init_params(TINY, 0)),
           "flagship_trained": (ModelConfig(), load_npz)}
@@ -60,28 +60,26 @@ def step(state, x, flip=False, channels_last=False, float64=False):
     it, the gradients it took).  ``flip``: each microbatch's images in
     reverse order; ``channels_last``: the step ``make_train_step``
     builds, which puts the model in ``torch.channels_last``, else its
-    arithmetic on the model in NCHW; ``float64``: the step in float64, the
-    bands from the float32 transform (as
-    ``bench_torch.gates.float64_step`` takes them)."""
+    arithmetic on the model in NCHW; ``float64``: Adam on the gradients of
+    ``dryrun.float64_step``, in float64."""
     model = copy.deepcopy(state[0]).to(memory_format=torch.contiguous_format)
+    x = x.flip(1) if flip else x
     if float64:
+        _, grads = dryrun.float64_step(model, x, CLIP)
         model = model.double()
     opt = make_optimizer(model, LR)
     opt.load_state_dict(copy.deepcopy(state[1].state_dict()))
-    x = x.flip(1) if flip else x
     if channels_last:
         make_train_step(model, opt)(x)
         return dryrun.model_step(model)
     opt.zero_grad(set_to_none=True)
     if float64:
-        for xb in x:
-            bands = [y.double() for y in model.transform(xb)]
-            rate_loss_list(xb.numel(),
-                           model.entropy_forward(bands))[0].backward()
+        for n, p in model.named_parameters():
+            p.grad = grads[n]
     else:
         accumulate(model, x, x[0].numel())
-    for p in model.parameters():
-        p.grad.div_(x.shape[0])
+        for p in model.parameters():
+            p.grad.div_(x.shape[0])
     apply_gradients(opt)
     return dryrun.model_step(model)
 

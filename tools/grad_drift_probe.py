@@ -17,7 +17,7 @@ set, seed 1337), under ``exact_math()``.  Prints:
   shapes and flags), each marked data-gradient (dgrad) or weight-gradient
   (wgrad) by its name;
 * for each of band 2's layer-0 weights, the relative L2 distance of its
-  gradient from the step's float64 gradient (``chip_smoke.float64_grads``)
+  gradient from the step's float64 gradient (``dryrun.float64_step``)
   when the step runs: on the card as it is (``make_train_step`` puts the
   model in channels-last); on the card with
   ``torch.backends.cudnn.enabled = False`` for that call only (PyTorch's
@@ -52,8 +52,8 @@ import chip_smoke as cs  # noqa: E402
 from llicti_torch import ModelConfig, load_npz  # noqa: E402
 from llicti_torch.codec import exact_math  # noqa: E402
 from llicti_torch.data import ImageDataset, TrainLoader  # noqa: E402
+from llicti_torch.parallel.dryrun import float64_step  # noqa: E402
 from llicti_torch.training import make_optimizer, make_train_step  # noqa
-from llicti_torch.training.loss import rate_loss_list  # noqa: E402
 from llicti_torch.weights import init_params, params_from_flax  # noqa: E402
 
 BAND2 = ("models.0.2.conv_00_10", "models.0.2.conv_11_10",
@@ -115,18 +115,15 @@ def train_step(cfg, params, batch, device, ctx, capture=()):
 
 
 def float64_capture(cfg, params, batch):
-    """chip_smoke.float64_grads' step with band 2's convs' calls
-    captured: their output gradients in float64."""
-    model32 = params_from_flax(params, cfg)
-    model = params_from_flax(params, cfg).double()
+    """The step's float64 reference (``dryrun.float64_step``) with band 2's
+    convs' calls captured -> (its gradients, Capture of their inputs and
+    output gradients in float64).  The hooks go with the model into the
+    step's float64 copy."""
+    model = params_from_flax(params, cfg)
     cap = Capture(model, BAND2 + TRUNK)
-    for xb in torch.from_numpy(batch):
-        with torch.no_grad():
-            bands = [y.double() for y in model32.transform(xb)]
-        total, _ = rate_loss_list(xb.numel(), model.entropy_forward(bands))
-        total.backward()
+    _, grads = float64_step(model, torch.from_numpy(batch), 5.0)
     cap.remove()
-    return cap
+    return grads, cap
 
 
 def wgrad(rec, weight, dtype, device, ctx):
@@ -217,7 +214,7 @@ def main() -> None:
     ds = ImageDataset(synthetic_len=4, synthetic_size=160, seed=cs.TRAIN_SEED)
     batch = next(iter(TrainLoader(ds, 2, 160, grad_acc=2,
                                   seed=cs.TRAIN_SEED)))
-    g64 = cs.float64_grads(cfg, params, batch)
+    g64, f64 = float64_capture(cfg, params, batch)
     weights = [n + ".weight" for n in BAND2]
 
     # 1. the kernels of the layer-0 convs' backward in one card step
@@ -246,7 +243,6 @@ def main() -> None:
 
     # 3. the conv's own weight gradient on the step's inputs and output
     # gradients, and how far those output gradients already are
-    f64 = float64_capture(cfg, params, batch)
     model = params_from_flax(params, cfg)
     mods = dict(model.named_modules())
     print_kernels("band 2 layer-0 backward alone", conv_backward_kernels(

@@ -17,10 +17,10 @@ min / median / max), Kernel 3's CUDA-event time and launches per encode
 (:func:`encode_kernel_ms`), and, unless ``--no-profile``, one ``torch.profiler``
 run of each direction: wall time, device busy time (the union of the
 kernels' intervals), idle share, device time and launches per kernel
-group (convs, Kernel 1, 2, 3, other), and the three costliest kernels of
-"other".  Trees with the serving path (not older ones) also give, with
-``--stages``, the median host ms of each stage of a single-image decode
-and encode (parse and unpack or host header, upload, queueing the device
+group (:func:`group_of`: the benchmark's groups), and the three
+costliest kernels of "other".  Trees with the serving path (not older
+ones) also give, with ``--stages``, the median host ms of each stage of
+a single-image decode and encode (parse and unpack or host header, upload, queueing the device
 work, the final fetch with its wait for the card); with ``--batch K``,
 the times of ``compress_batch`` / ``decompress_batch`` of K images
 (seeds 42, 43, ...) and a profile of each and of the resident closures
@@ -37,9 +37,8 @@ microbatches of 32 synthetic 160x160 patches, random weights from seed
 1337, Adam at 1e-4) timed over ``--runs`` steps with PyTorch's default
 flags and under ``exact_math``; the step split on the device timeline by
 CUDA events into upload, forward, backward and optimiser; and a profile
-of one step (busy time, idle share, kernel groups, the costliest kernels,
-cuDNN's ``genericTranspose_kernel``).  The profile of every mode names
-the transposes.  The last line is the card's name and power limit.
+of one step (busy time, idle share, kernel groups, the costliest kernels
+of "other").  The last line is the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -54,12 +53,25 @@ import time
 
 import torch
 
-GROUPS = (("Kernel 1 (CDF)", ("cdf_pmap_kernel",)),
-          ("Kernel 2 (rANS decode)", ("rans_decode_kernel",)),
-          # rans_encode_kernel in older trees, rans_encode_lanes_kernel and
-          # rans_encode_place_kernel since the chain
-          ("Kernel 3 (rANS encode)", ("rans_encode_",)),
-          ("convs (cuDNN)", ("conv", "sgemm", "gemm", "implicit")))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+from llbench import readers  # noqa: E402
+from llbench.trace import capture  # noqa: E402
+
+# the benchmark's kernel groups (llbench/readers.py), in the order a name
+# is filed: the hand kernels, cuDNN's layout changes and NCCL before the
+# convs, whose patterns ("cudnn") the layout changes also match
+GROUP_ORDER = (("kernel1", readers.KERNEL1), ("kernel2", readers.KERNEL2),
+          ("kernel3", readers.KERNEL3), ("transpose", readers.TRANSPOSE),
+          ("nccl", readers.NCCL), ("conv", readers.CONV))
+
+
+def group_of(kernel_name: str) -> str:
+    """The group of the benchmark's that ``kernel_name`` is filed under:
+    the first of :data:`GROUP_ORDER` whose patterns it holds, else "other"."""
+    low = kernel_name.lower()
+    return next((group for group, patterns in GROUP_ORDER
+                 if any(p in low for p in patterns)), "other")
 
 
 def timed(fn):
@@ -117,45 +129,32 @@ def encode_kernel_ms(codec, img, iters: int = 20):
 
 
 def profile(fn, label: str, top: int = 3) -> None:
-    from torch.profiler import ProfilerActivity, profile as prof_ctx
-    torch.cuda.synchronize()
-    with prof_ctx(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
+    """One call of ``fn`` under the benchmark's trace (``llbench.trace``):
+    wall ms, device busy ms and idle share, ms and launches of each kernel
+    group, and the ``top`` costliest kernels of "other"."""
+    traces = []
+    with capture(1, traces, torch.device("cuda")):
         _, wall = timed(fn)
-    spans, groups = [], {name: [0.0, 0] for name, _ in GROUPS}
-    groups["other"] = [0.0, 0]
-    other = {}  # kernel name -> [ms, launches] within "other"
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        spans.append((ev.time_range.start, ev.time_range.end))
-        name = ev.name.lower()
-        key = next((g for g, keys in GROUPS
-                    if any(k in name for k in keys)), "other")
-        ms = (ev.time_range.end - ev.time_range.start) / 1e3
-        groups[key][0] += ms
-        groups[key][1] += 1
-        if key == "other":
-            entry = other.setdefault(ev.name, [0.0, 0])
-            entry[0] += ms
-            entry[1] += 1
-    busy, end = 0.0, float("-inf")
-    for a, b in sorted(spans):  # union of the kernels' intervals
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    busy /= 1e3
+    trace = traces[0]
+    busy = 1e3 * trace.busy_s
     print(f"profile {label}: wall {wall:.2f} ms, device busy {busy:.2f} ms, "
           f"idle share {1 - busy / wall:.3f}")
-    for key, (ms, count) in groups.items():
-        print(f"profile {label}: {key}: {ms:.3f} ms, {count} kernels")
+    groups = {group: [0.0, 0] for group, _ in GROUP_ORDER}
+    groups["other"] = [0.0, 0]
+    other = {}  # kernel name -> [ms, launches] within "other"
+    for name, a, b in trace.kernels:
+        group = group_of(name)
+        entries = [groups[group]]
+        if group == "other":
+            entries.append(other.setdefault(name, [0.0, 0]))
+        for entry in entries:
+            entry[0] += (b - a) / 1e3
+            entry[1] += 1
+    for group, (ms, count) in groups.items():
+        print(f"profile {label}: {group}: {ms:.3f} ms, {count} kernels")
     for name, (ms, count) in sorted(other.items(),
                                     key=lambda kv: -kv[1][0])[:top]:
         print(f"profile {label}: other: {ms:.3f} ms in {count} x {name[:70]}")
-    tr = [v for name, v in other.items() if "genericTranspose" in name]
-    print(f"profile {label}: cuDNN genericTranspose_kernel: "
-          f"{sum(v[0] for v in tr):.3f} ms in {sum(v[1] for v in tr)} "
-          "kernels")
 
 
 def medians(label: str, xs, per: int = 1) -> None:
