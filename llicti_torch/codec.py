@@ -308,7 +308,8 @@ def batch_header_group(S, last_h, last_w, origs, minmax, pad_int,
 def host_header(rgb: np.ndarray, levels: Sequence[int]):
     """(per-colour [min..., max...] of YCoCg over all images, raw
     coarsest-x00 RGB bands [K, lh, lw, 3]) of a [K, H, W, 3] uint8 batch,
-    on the host."""
+    on the host: the numpy twin of what :meth:`Codec._stage` reduces on the
+    device."""
     ycocg = rgb_int_to_ycocg_r_int_np(rgb)
     minmax = ([int(ycocg[..., c].min()) for c in range(3)]
               + [int(ycocg[..., c].max()) for c in range(3)])
@@ -458,10 +459,10 @@ def num_bytes(streams: List[List[bytes]]) -> int:
 
 
 class _Staged(NamedTuple):
-    """The host's part of an encode of K images of one (padded) shape."""
+    """What the host holds of an encode of K images of one (padded) shape."""
     rgb: np.ndarray               # uint8 [K, H, W, 3]
     origs: List[Tuple[int, int]]
-    minmax: List[int]             # union over the K images
+    minmax: List[int]             # YCoCg-R's, union over the K images
     raw: np.ndarray               # uint8 [K, lh, lw, 3]
     pad_flags: List[Tuple[bool, bool]]
     pad_int: int
@@ -754,28 +755,50 @@ class Codec:
         self.compiled_shapes.add((H, W))
         return rgb, oh, ow
 
-    def _stage(self, imgs: Sequence[np.ndarray]) -> _Staged:
-        """The host's part of an encode of images of one padded shape."""
+    def _batch(self, imgs: Sequence[np.ndarray]):
+        """Images of one padded shape -> (uint8 [K, H', W', 3], each
+        image's size before padding)."""
+        if not len(imgs):
+            raise ValueError("no images")
+        prepped = [self._prepare(im) for im in imgs]
+        if len({p[0].shape for p in prepped}) != 1:
+            raise ValueError("a batch takes images of one shape (after "
+                             "size_bucket padding)")
+        return (np.concatenate([p[0] for p in prepped]),
+                [(oh, ow) for _, oh, ow in prepped])
+
+    def _stage(self, batches: Sequence[Sequence[np.ndarray]]):
+        """Stage groups of images, each of one padded shape, for an encode:
+        each group padded and joined on the host and uploaded (pinned,
+        asynchronous); then every group's YCoCg-R [min..., max...] over its
+        K images reduced on the device and fetched in one synchronisation,
+        and its header built with the raw coarsest band.  The ranges set
+        Kernel 1's sampling points, so they reach the host before any band
+        is queued.  ->
+        (a _Staged a group, its uint8 [K, H', W', 3] on the device)."""
         with span("llicti.stage"):
-            if not len(imgs):
-                raise ValueError("no images")
-            prepped = [self._prepare(im) for im in imgs]
-            if len({p[0].shape for p in prepped}) != 1:
-                raise ValueError("a batch takes images of one shape (after "
-                                 "size_bucket padding)")
-            rgb = np.concatenate([p[0] for p in prepped])
-            H, W = rgb.shape[1], rgb.shape[2]
+            host = [self._batch(imgs) for imgs in batches]
+            devs = [self._upload(rgb) for rgb, _ in host]
             levels = self.cfg.dwtlevels
-            pad_flags, pad_int = pad_flags_for_shape(H, W, levels)
-            with span("llicti.host_header"):
-                minmax, raw = host_header(rgb, levels)
             stride = 2 ** (max(levels) + 1)
-            last_h, last_w = -(-H // stride), -(-W // stride)
-            return _Staged(rgb, [(oh, ow) for _, oh, ow in prepped], minmax,
-                           raw, pad_flags, pad_int, last_h, last_w,
-                           words_cap(self.N, self.cfg.num_scales, last_h,
-                                     last_w, pad_flags),
-                           [clr_range(clr, minmax) for clr in range(3)])
+            with span("llicti.host_header"):
+                mms = self._fetch([torch.cat(torch.aminmax(
+                    rgb_int_to_ycocg_r_int(d).reshape(-1, 3), dim=0))
+                    for d in devs])
+                staged = []
+                for (rgb, origs), mm in zip(host, mms):
+                    H, W = rgb.shape[1], rgb.shape[2]
+                    pad_flags, pad_int = pad_flags_for_shape(H, W, levels)
+                    last_h, last_w = -(-H // stride), -(-W // stride)
+                    minmax = [int(v) for v in mm]
+                    staged.append(_Staged(
+                        rgb, origs, minmax,
+                        np.ascontiguousarray(rgb[:, ::stride, ::stride]),
+                        pad_flags, pad_int, last_h, last_w,
+                        words_cap(self.N, self.cfg.num_scales, last_h,
+                                  last_w, pad_flags),
+                        [clr_range(clr, minmax) for clr in range(3)]))
+            return staged, devs
 
     def _encode_slices(self, rgb_dev: torch.Tensor, st: _Staged):
         """Queue the convs and CDF tables of an encode of ``rgb_dev`` (uint8
@@ -835,12 +858,13 @@ class Codec:
         return [[float(v) for v in ideal_row[s * 9:s * 9 + 9]]
                 for s in range(self.cfg.num_scales)]
 
-    def _encode(self, groups: Sequence[_Staged]):
-        """Encode staged groups: every group's upload and device work is
-        queued first, then one synchronisation fetches all cursors, states
-        and ideal bits, and one more all payloads.  -> per group, per image
-        (rANS blob, stream bits table, ideal bits table)."""
-        devs = [self._upload(st.rgb) for st in groups]
+    def _encode(self, groups: Sequence[_Staged],
+                devs: Sequence[torch.Tensor]):
+        """Encode staged groups (``devs`` their images on the device): every
+        group's device work is queued first, then one synchronisation
+        fetches all cursors, states and ideal bits, and one more all
+        payloads.  -> per group, per image (rANS blob, stream bits table,
+        ideal bits table)."""
         outs = [self._encode_queue(d, st) for d, st in zip(devs, groups)]
         small = self._fetch([t for cursors, states, _, ideal in outs
                              for t in (cursors, states, ideal)])
@@ -890,13 +914,14 @@ class Codec:
         """Pipelined encode of several images, each into its own
         single-image container, byte-equal to what :meth:`compress` gives:
         the host work of all images first, then every upload (pinned,
-        asynchronous) and every image's device work, then one
-        synchronisation for all cursors, states and ideal bits and one for
-        all payloads.  The accounting keeps one table per image.  Codes
+        asynchronous), one synchronisation for all images' colour ranges,
+        every image's device work, then one synchronisation for all
+        cursors, states and ideal bits and one for all payloads.  The
+        accounting keeps one table per image.  Codes
         with the device backend, whatever the codec's, as the JAX
         package's does."""
-        groups = [self._stage([im]) for im in imgs]
-        per = [g[0] for g in self._encode(groups)]
+        groups, devs = self._stage([[im] for im in imgs])
+        per = [g[0] for g in self._encode(groups, devs)]
         with span("llicti.pack"):
             self._account(per)
             S = self.cfg.num_scales
@@ -917,8 +942,8 @@ class Codec:
             raise ValueError("a batch container needs the device backend")
         if not 1 <= len(imgs) <= 254:
             raise ValueError(f"a batch holds 1..254 images, got {len(imgs)}")
-        st = self._stage(imgs)
-        per = self._encode([st])[0]
+        (st,), devs = self._stage([imgs])
+        per = self._encode([st], devs)[0]
         with span("llicti.pack"):
             self._account(per)
             return ([batch_header_group(self.cfg.num_scales, st.last_h,
@@ -932,8 +957,9 @@ class Codec:
         ``[H, W, 3]`` or of a list of images of one shape: (the (start,
         freq) int32 ``[K, n]`` pair of every slice in decode order, the
         word cap of each image's stream)."""
-        st = self._stage([imgs] if isinstance(imgs, np.ndarray) else imgs)
-        return self._encode_slices(self._upload(st.rgb), st), st.cap
+        (st,), (dev,) = self._stage(
+            [[imgs] if isinstance(imgs, np.ndarray) else imgs])
+        return self._encode_slices(dev, st), st.cap
 
     def prepare_encode(self, rgb: np.ndarray):
         """Stage one image on the card; returns a closure whose call queues
@@ -943,8 +969,7 @@ class Codec:
         the call copies nothing between host and card and never
         synchronises.  Device backend, whatever the codec's (as the JAX
         package's)."""
-        st = self._stage([rgb])
-        rgb_dev = self._upload(st.rgb)
+        (st,), (rgb_dev,) = self._stage([[rgb]])
         self._pts3(st.ranges)
         self._settle()
 
@@ -975,9 +1000,9 @@ class Codec:
         the thread pool while the device computes the next scale."""
         cfg = self.cfg
         S = cfg.num_scales
-        st = self._stage([rgb])
+        (st,), (dev,) = self._stage([[rgb]])
         pts3 = self._pts3(st.ranges)
-        y_list = self._front(self._upload(st.rgb))
+        y_list = self._front(dev)
         jobs = []
         with ThreadPoolExecutor(self.num_threads) as pool:
             for scl in range(S - 1, -1, -1):

@@ -73,19 +73,27 @@ def check_pass(node, decode):
                   else ["llicti.kernel1"])
     for band in bands:
         assert band.names() == ["llicti.interp"] + 3 * per_colour
+    def check_fetch(k):  # one wait: one synchronisation
+        assert k.names() == ["llicti.wait"]
+        assert not k.kids[0].kids
+
     for k in node.kids:
-        if k.name == "llicti.fetch":  # one wait: one synchronisation
-            assert k.names() == ["llicti.wait"]
-            assert not k.kids[0].kids
+        if k.name == "llicti.fetch":
+            check_fetch(k)
         elif k.name == "llicti.stage":
-            assert k.names() == ["llicti.host_header"]
+            # the upload, then the colour ranges reduced on the device and
+            # fetched
+            assert k.names() == ["llicti.upload", "llicti.host_header"]
+            assert not k.kids[0].kids
+            assert k.kids[1].names() == ["llicti.fetch"]
+            check_fetch(k.kids[1].kids[0])
         elif k.name != "llicti.band":
             assert not k.kids, k.name
     return node.names()
 
 
 # the children of each pass's entry span, in order
-ENCODE = (["llicti.stage", "llicti.upload", "llicti.wavelet"]
+ENCODE = (["llicti.stage", "llicti.wavelet"]
           + 3 * S * ["llicti.band"]
           + ["llicti.kernel3", "llicti.fetch", "llicti.pack", "llicti.fetch",
              "llicti.pack", "llicti.pack"])

@@ -20,9 +20,11 @@ kernels' intervals), idle share, device time and launches per kernel
 group (:func:`group_of`: the benchmark's groups), and the three
 costliest kernels of "other".  Trees with the serving path (not older
 ones) also give, with ``--stages``, the median host ms of each stage of
-a single-image decode and encode (parse and unpack or host header, upload, queueing the device
-work, the final fetch with its wait for the card); with ``--batch K``,
-the times of ``compress_batch`` / ``decompress_batch`` of K images
+a single-image decode and encode (parse and unpack, upload; the
+encode's staging, which uploads the image and fetches its colour ranges;
+queueing the device work, the final fetch with its wait for the card);
+with ``--batch K``, the times of ``compress_batch`` /
+``decompress_batch`` of K images
 (seeds 42, 43, ...) and a profile of each and of the resident closures
 (``prepare_decode``, ``prepare_encode``, ``prepare_decode_batch``); with
 ``--two-stage``, the decode times of a ``two_stage`` codec and the fused
@@ -222,10 +224,8 @@ def stages(codec, img, args) -> None:
         lap("decode: fetch (waits for the card)", t)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        st = codec._stage([img])
-        t = lap("encode: host header", t)
-        dev = codec._upload(st.rgb)
-        t = lap("encode: upload", t)
+        (st,), (dev,) = codec._stage([[img]])
+        t = lap("encode: stage (upload, colour ranges on the card)", t)
         cursors, lanes, buf, ideal = codec._encode_queue(dev, st)
         t = lap("encode: queue", t)
         small = codec._fetch([cursors, lanes, ideal])
