@@ -85,6 +85,7 @@ from .models.interpolator import seq_colours
 from .ops.cdf import gmm_cdf_from_pmap
 from .ops.color import (rgb_int_to_ycocg_r_int, rgb_int_to_ycocg_r_int_np,
                         ycocg_r_int_to_rgb_int)
+from .ops.gdn import GDN1
 from .ops.gmm import (cdf_float_to_cum_int32, cdf_float_to_uint16,
                       cdf_sampling_points, cum_start_freq, gmm_cdf_table)
 from .ops.wavelet import (band_coded_shape, interleave_scale, lazy_dwt,
@@ -580,6 +581,11 @@ class Codec:
         self.compiled_shapes: set = set()
         self.logistic = cfg.distribution == "logistic"
         self.model = params_from_flax(params, cfg).to(self.device)
+        # GDN1's effective beta and gamma are constants of every pass:
+        # computed once here, not in each call of a band net
+        for mod in self.model.modules():
+            if isinstance(mod, GDN1):
+                mod.hold()
         self._pts: Dict[Tuple[int, int], torch.Tensor] = {}
         self._shift = torch.tensor(_SHIFT, dtype=torch.int32).to(self.device)
         self._side = (torch.cuda.Stream(self.device)
