@@ -31,10 +31,23 @@ Phases, each of which raises on failure:
      padding) at N = 1, 33, 1000, 1024, with freq 1, freq near 2^16 and
      carried states 2^16 and 2^32 - 1, each decoded back by Kernel 2;
   4. check the CUDA model against the CPU one on a small crop;
+  4b. the band epilogue (ops/band_epilogue.py) against its plain version
+     (PyTorch's passes on the card) at the main path's shapes, bit for
+     bit with -0.0, +-inf and NaN strewn in: layer 0's 1-3 unit maps of
+     the finest band (256x384, Ch 352) at K = 1 in place and at K = 8
+     written channel-major, with ReLU and without; the trunk's middle conv
+     in place (K = 1 and the K = 8 stack, [1, 352, 2048, 384]); the last
+     conv (Co 60) written NHWC at both; 310x598's finest band (155x299,
+     the scalar kernels) and an NHWC last tile short of a block's pixels;
+     each timed beside its bound (bytes
+     over 3.35 TB/s) and beside the PyTorch passes it replaces (the bias
+     adds, the unit sums, the clamp, the NHWC copy); then its launches
+     over a K = 8 batch container round trip, conv_layers a band net (90);
   5. the main path: Codec.compress -> serialize -> deserialize ->
      decompress of synthetic_image(512, 768, seed=42) with the trained
      flagship weights, byte-exact, with every kernel's launch count > 0
-     (the encode's at most 2); prints the container's sha256 and size;
+     (the encode's at most 2, the band epilogue's conv_layers a band net,
+     90); prints the container's sha256 and size;
   6. the same round trip on a 310x598 image (odd sizes, pad flags);
   7. Kernel 4's path (it lies on no codec path, in this package or the JAX
      one): tables of the finest band from gmm_slice_params, rANS-encoded
@@ -164,8 +177,10 @@ Kernels 2 and 3 above 1024 lanes (N = 2048's figures, each N's under
 "lanes", the decode's with its steps and us a step on the Y slice, and
 its K = 8 launch at N = 2048 as batch_*, at N = 20000 under
 "wide_batch_lanes", and the K = 8 batch containers' bytes, ms an image and
-launches by N under "batch_container_lanes"); the last line is {"ok": true,
-"device": {...}}.
+launches by N under "batch_container_lanes"); band_epilogue's row holds
+phase 4b's cases (ms, bound_ms, passes_ms), its launches over the main
+path's round trip and a batch one's (batch_launches);
+the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -192,6 +207,8 @@ from llicti_torch.config import (DataConfig, LLICTIConfig, TrainConfig,
                                  config_from_json, replace)
 from llicti_torch.data import ImageDataset, TrainLoader, load_rgb
 from llicti_torch.ops import cdf
+from llicti_torch.ops.band_epilogue import (band_epilogue, band_epilogue_plain,
+                                            unfused_passes)
 from llicti_torch.ops.bounds import lower_bound
 from llicti_torch.ops.color import rgb_int_to_ycocg_r_int
 from llicti_torch.ops.gmm import SCALE_BOUND_NORMAL, cdf_sampling_points
@@ -731,6 +748,103 @@ def model_phase(codec, params, img):
     print(f"64x96 crop: CPU {b_cpu} bytes, CUDA {b_gpu} bytes")
     check(abs(b_cpu - b_gpu) <= max(0.001 * b_cpu, 16), "sizes differ")
     check(np.array_equal(codec.decompress(s_gpu)[0], crop), "crop lossy")
+
+
+EPILOGUE_SPECIALS = (-0.0, 0.0, float("inf"), float("-inf"), float("nan"))
+
+
+def epilogue_inputs(gen, shape, dev):
+    """Normal float32 values on the card with -0.0, +0.0, +-inf and NaN
+    strewn in."""
+    t = torch.randn(shape, generator=gen, device=dev)
+    flat = t.view(-1)
+    k = min(500, flat.numel() // 10)
+    where = torch.randint(0, flat.numel(), (k,), generator=gen, device=dev)
+    flat[where] = torch.tensor(EPILOGUE_SPECIALS, device=dev).repeat(100)[:k]
+    return t
+
+
+def epilogue_phase(codec, imgs):
+    """Phase 4b: the band epilogue against its plain version, timed; its
+    launches over a batch round trip (phase 5 counts a single one's).
+    -> {"cases": rows of (label, ms, bound ms, PyTorch passes' ms),
+    "batch_launches": a batch round trip's}."""
+    dev, cfg = codec.device, codec.cfg
+    gen = torch.Generator(device=dev).manual_seed(24)
+    Ch, Co, h, w = 352, 60, 256, 384
+    K = len(imgs)
+    cases = [(f"layer 0 K=1 U={U}{' ReLU' if r else ''}", (1, Ch, h, w), U,
+              r, "k1") for U in (1, 2, 3) for r in (True, False)]
+    cases += [(f"layer 0 K={K} U={U}{' ReLU' if r else ''}", (K, Ch, h, w),
+               U, r, "channel_major")
+              for U in (1, 2, 3) for r in (True, False)]
+    cases += [("trunk K=1 ReLU", (1, Ch, h, w), 1, True, "k1"),
+              (f"trunk K={K} ReLU", (1, Ch, K * h, w), 1, True, "k1"),
+              ("last conv K=1 NHWC", (1, Co, h, w), 1, False, "nhwc"),
+              (f"last conv K={K} NHWC", (1, Co, K * h, w), 1, False, "nhwc")]
+    # the scalar kernels (rows of 155 x 299 pixels, 310x598's finest band,
+    # are not whole float4s) and a last tile of fewer pixels than a block's
+    cases += [("layer 0 K=1 U=3 ReLU, odd", (1, Ch, 155, 299), 3, True, "k1"),
+              (f"layer 0 K={K} U=2, odd", (K, Ch, 155, 299), 2, False,
+               "channel_major"),
+              ("last conv NHWC, odd", (1, Co, 155, 299), 1, False, "nhwc"),
+              ("last conv NHWC, a short last tile", (1, Co, 100, 36), 1,
+               False, "nhwc")]
+    rows = []
+    for label, shape, U, relu, layout in cases:
+        maps = [epilogue_inputs(gen, shape, dev) for _ in range(U)]
+        biases = [epilogue_inputs(gen, shape[1:2], dev) for _ in range(U)]
+        want = band_epilogue_plain(maps, biases, relu, nhwc=layout == "nhwc")
+        check(torch.equal(unfused_passes(maps, biases, relu, layout)
+                          .reshape(-1).view(torch.int32),
+                          want.reshape(-1).view(torch.int32)),
+              f"band epilogue {label}: the plain version is not PyTorch's "
+              "passes")
+        if layout == "channel_major":
+            buf = torch.empty((shape[1], shape[0]) + shape[2:], device=dev)
+            out = buf.transpose(0, 1)
+        elif layout == "k1":
+            out = torch.empty(shape, device=dev)
+        else:
+            out = None
+        got = band_epilogue(maps, biases, relu=relu, out=out,
+                            nhwc=layout == "nhwc")
+        torch.cuda.synchronize()
+        check(torch.equal(got.reshape(-1).view(torch.int32),
+                          want.reshape(-1).view(torch.int32)),
+              f"band epilogue {label}: not bit-equal to its plain version")
+        if layout == "k1":  # in place, into the first map
+            got = band_epilogue(maps, biases, relu=relu, out=maps[0])
+            check(torch.equal(got.reshape(-1).view(torch.int32),
+                              want.reshape(-1).view(torch.int32)),
+                  f"band epilogue {label}: in place not bit-equal")
+            maps[0] = epilogue_inputs(gen, shape, dev)
+        del want, got
+        n = math.prod(shape)
+        ms = cuda_ms(lambda: band_epilogue(maps, biases, relu=relu, out=out,
+                                           nhwc=layout == "nhwc"), 10)
+        lib_ms = cuda_ms(lambda: unfused_passes(maps, biases, relu, layout),
+                         5)
+        bound_ms, _ = bound(4 * (U + 1) * n + 4 * U * shape[1], 0)
+        rows.append((label, ms, bound_ms, lib_ms))
+        print(f"band epilogue {label} {list(shape)}: bit-equal to its plain "
+              f"version; {ms:.4f} ms, bound {bound_ms:.4f} ms (bytes, "
+              f"{100 * bound_ms / ms:.1f} %), PyTorch's passes {lib_ms:.4f} "
+              f"ms")
+        del maps, biases, out
+        torch.cuda.empty_cache()
+    S = cfg.num_scales
+    per_trip = 2 * 3 * S * cfg.conv_layers
+    band_epilogue.launches = 0
+    outs = codec.decompress_batch(codec.compress_batch(imgs))
+    batch = band_epilogue.launches
+    check(all(np.array_equal(o, im) for o, im in zip(outs, imgs)),
+          "band epilogue: the batch round trip is lossy")
+    check(batch == per_trip, f"band epilogue launches: {batch} a batch "
+          f"round trip, expected {per_trip}")
+    print(f"band epilogue launches: {batch} a K={K} batch round trip; "
+          f"{card_line()}")
+    return {"cases": rows, "batch_launches": batch}
 
 
 def round_trip(codec, img, label: str):
@@ -2470,6 +2584,11 @@ def build_phase():
     check(len(k3) == 2, f"{len(k3)} Kernel 3 kernels, expected 2")
     check(all(r["spill_stores"] == 0 and r["spill_loads"] == 0 for r in k3),
           "a Kernel 3 kernel spills")
+    epi = [r for r in table if "band_epilogue" in r["kernel"]]
+    check(len(epi) == 24, f"{len(epi)} band epilogue instances, expected 24")
+    check(all(r["stack"] == 0 and r["spill_stores"] == 0
+              and r["spill_loads"] == 0 for r in epi),
+          "a band epilogue instance has a stack frame or spills")
     wide = [r for r in table if "rans_decode_wide_kernel" in r["kernel"]]
     check(len(wide) == 1, f"{len(wide)} wide decode kernels, expected 1")
     check(all(r["stack"] == 0 and r["spill_stores"] == 0
@@ -2520,24 +2639,32 @@ def main() -> None:
     print(f"kernel3 edge cases: {encode_edge_phase(codec.device)} chains "
           "bit-identical and round-tripped")
     model_phase(codec, params, img)
+    epilogue = epilogue_phase(codec, [synthetic_image(512, 768, seed=42 + k)
+                                      for k in range(BATCH_K)])
 
     counters = {"gmm_cdf_from_pmap": cdf.gmm_cdf_from_pmap,
                 "rans_decode": rans.rans_decode,
                 "rans_encode": rans.rans_encode_chain}
+    # the main path's kernels: the later phases count the ported ones
+    main_path = dict(counters, band_epilogue=band_epilogue)
     codec.decompress(codec.compress(img))  # warm-up
-    for fn in list(counters.values()) + [cdf.gmm_cdf_table_int32]:
+    for fn in list(main_path.values()) + [cdf.gmm_cdf_table_int32]:
         fn.launches = 0
     flagship, flagship_sha = round_trip(codec, img, "512x768 flagship")
     flagship_bits = codec.last_slice_bits
     check(flagship_sha.startswith(FLAGSHIP_SHA[0])
           and flagship_sha.endswith(FLAGSHIP_SHA[1]),
           f"the flagship container's sha256 {flagship_sha} is not PR 2's")
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = {name: fn.launches for name, fn in main_path.items()}
     print(f"main path launches: {launches}")
     check(all(v > 0 for v in launches.values()),
           "a kernel of the main path was not launched")
     check(launches["rans_encode"] <= 2,
           f"Kernel 3 made {launches['rans_encode']} launches in one encode")
+    epi_trip = 2 * 3 * cfg.num_scales * cfg.conv_layers
+    check(launches["band_epilogue"] == epi_trip,
+          f"the band epilogue made {launches['band_epilogue']} launches in "
+          f"the round trip, expected {epi_trip}")
     # Kernel 4 lies on no codec path: its count over the round trip is 0
     per_trip = dict(launches,
                     gmm_cdf_table_int32=cdf.gmm_cdf_table_int32.launches)
@@ -2545,9 +2672,9 @@ def main() -> None:
           "Kernel 4 was launched on the codec path")
     odd = synthetic_image(310, 598, seed=7)
     codec.decompress(codec.compress(odd))  # warm-up
-    before = {name: fn.launches for name, fn in counters.items()}
+    before = {name: fn.launches for name, fn in main_path.items()}
     odd_streams, _ = round_trip(codec, odd, "310x598")
-    check(all(fn.launches > before[name] for name, fn in counters.items()),
+    check(all(fn.launches > before[name] for name, fn in main_path.items()),
           "310x598 round trip skipped a kernel")
 
     cdf.gmm_cdf_table_int32.launches = 0
@@ -2569,7 +2696,8 @@ def main() -> None:
     print(f"rate / host backend / exact-math phase: "
           f"{time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    train_phase(dict(counters, gmm_cdf_table_int32=cdf.gmm_cdf_table_int32))
+    train_phase(dict(counters, gmm_cdf_table_int32=cdf.gmm_cdf_table_int32,
+                     band_epilogue=band_epilogue))
     print(f"training phase: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     lanes, wide_batch, wide, trips = port_phase(cfg, params, img, odd, codec,
@@ -2651,6 +2779,15 @@ def main() -> None:
                                        for N in WIDE_BATCH_LANES[1:]}
     kernels[-2]["batch_container_lanes"] = {str(N): r
                                             for N, r in trips.items()}
+    # the band epilogue replaces no TPU kernel: its cases of phase 4b
+    kernels.append({
+        "name": "band_epilogue", "route": "cuda",
+        "source": "llicti_torch/csrc/band_epilogue.cu", "replaces": None,
+        "launches": launches["band_epilogue"],
+        "launches_per_round_trip": per_trip["band_epilogue"],
+        "batch_launches": epilogue["batch_launches"], "cases": {
+            label: {"ms": ms, "bound_ms": bound_ms, "passes_ms": passes_ms}
+            for label, ms, bound_ms, passes_ms in epilogue["cases"]}})
     print(json.dumps({"kernels": kernels}))
     print(ok_line())
 

@@ -18,6 +18,11 @@ tensors are NHWC like the JAX package's; inside, the convs run in the
 memory format of the layer-0 kernels: NCHW as loaded (the codec's), or
 channels-last (the training step's), in which the NHWC bands need no
 transpose.
+Where no gradient is recorded and the convs run NCHW (every codec pass),
+layer 0's unit sum, a ReLU, the parameter map's NHWC layout and, on the
+card, each conv's bias are done in one pass after the conv
+(:func:`band_epilogue`), with the additions PyTorch's own passes make, in
+their order.
 The conditioning and predicted bands are data: no gradient flows into
 them, only into the parameters.
 """
@@ -28,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import ModelConfig
+from ..ops.band_epilogue import band_epilogue
 from ..ops.color import ieee_div
 from ..ops.gdn import GDN1
 from ..ops.gmm import gmm_self_information
@@ -128,15 +134,19 @@ class Interpolator(nn.Module):
         trunk.append(nn.Conv2d(Ch, Co, 1, groups=grps))
         self.trunk = nn.Sequential(*trunk)
 
-    def _units(self, y_cond: torch.Tensor, halo=None):
-        """The conditioning bands as NCHW, this band's layer-0 specs and
-        the halo rows the bands carry a side: none without ``halo``; with
-        it, the rows its widest pad needs, from the neighbouring ranks."""
+    def _band_specs(self, y_cond: torch.Tensor):
+        """The layer-0 specs of the band ``y_cond`` conditions."""
         band = y_cond.shape[-1] // self.c - 1
         if band not in self._specs:
             raise ValueError(f"{y_cond.shape[-1]} conditioning channels fit "
                              f"no band of this interpolator")
-        specs = self._specs[band]
+        return self._specs[band]
+
+    def _units(self, y_cond: torch.Tensor, halo=None):
+        """The conditioning bands as NCHW, this band's layer-0 specs and
+        the halo rows the bands carry a side: none without ``halo``; with
+        it, the rows its widest pad needs, from the neighbouring ranks."""
+        specs = self._band_specs(y_cond)
         if halo is None:
             return y_cond.permute(0, 3, 1, 2), specs, 0
         m = max(max(pad[2], pad[3]) for _, _, _, pad in specs)
@@ -150,22 +160,43 @@ class Interpolator(nn.Module):
         return (torch.channels_last if w.stride(1) == 1
                 else torch.contiguous_format)
 
-    def _unit_convs(self, y_cond: torch.Tensor, halo=None):
-        """Layer 0's conv of each conditioning band unit in turn, NCHW in
-        the kernels' memory format."""
+    def _fused(self, x: torch.Tensor) -> bool:
+        """Whether the convs that read the NCHW map ``x`` finish in the
+        band epilogue: where no gradient is recorded (the epilogue has no
+        backward), the layer-0 kernels run NCHW (a training model's run
+        channels-last) and ``x`` is NCHW contiguous, the layouts the
+        epilogue takes.  On the CPU the epilogue is its plain version,
+        and each conv keeps its bias (:func:`_unbiased`): that run is
+        where the CPU's tests hold the fused path's wiring."""
+        specs = next(iter(self._specs.values()))
+        return (not torch.is_grad_enabled() and x.is_contiguous()
+                and self._format(specs) == torch.contiguous_format)
+
+    def _unit_inputs(self, y_cond: torch.Tensor, halo=None):
+        """(layer-0 conv, its padded NCHW input in the kernels' memory
+        format) of each conditioning band unit in turn."""
         x, specs, m = self._units(y_cond, halo)
         c, fmt = self.c, self._format(specs)
         for unit, name, _, pad in specs:
             xb = x[:, unit * c:(unit + 1) * c].contiguous(memory_format=fmt)
-            yield getattr(self, name)(_replicate(xb, pad, m))
+            yield getattr(self, name), _replicate(xb, pad, m)
 
-    def _base(self, y_cond: torch.Tensor, halo=None) -> torch.Tensor:
-        """Pre-activation layer-0 sum, NCHW in the kernels' memory
-        format."""
-        out = None
-        for o in self._unit_convs(y_cond, halo):
-            out = o if out is None else out + o
-        return out
+    def _base(self, y_cond: torch.Tensor, halo=None,
+              act: bool = False) -> torch.Tensor:
+        """Layer-0 sum, NCHW in the kernels' memory format: pre-activation,
+        or with ``act`` after ``act0`` (a ReLU folded into the band
+        epilogue on the fused path, :meth:`_fused`)."""
+        units = self._unit_inputs(y_cond, halo)
+        conv, x = next(units)
+        if not self._fused(x):
+            out = conv(x)
+            for conv, x in units:
+                out = out + conv(x)
+            return self.act0(out) if act else out
+        maps, biases = zip(_unbiased(conv, x), *(_unbiased(*u) for u in units))
+        relu = act and type(self.act0) is nn.ReLU
+        out = band_epilogue(maps, biases, relu=relu, out=maps[0])
+        return self.act0(out) if act and not relu else out
 
     def _quant(self, x: torch.Tensor) -> torch.Tensor:
         return ieee_div(torch.round(x * self.rndfactor), self.rndfactor)
@@ -197,17 +228,33 @@ class Interpolator(nn.Module):
         return out, mean.permute(0, 2, 3, 1)
 
     def _head(self, base: torch.Tensor) -> torch.Tensor:
-        """Activation + trunk of an NCHW base -> NHWC contiguous pmap (a
-        view, without a copy, of a channels-last trunk's output)."""
-        h = self.trunk(self.act0(base))
-        return h.permute(0, 2, 3, 1).contiguous()
+        """Activation + trunk of an NCHW base -> NHWC contiguous pmap."""
+        return self._trunk(self.act0(base))
+
+    def _trunk(self, h: torch.Tensor) -> torch.Tensor:
+        """Trunk of an activated NCHW map -> NHWC contiguous pmap (a view,
+        without a copy, of a channels-last trunk's output).  On the fused
+        path (:meth:`_fused`) each conv's bias (and a middle conv's ReLU)
+        is added in place in one pass, and the last conv's output written
+        NHWC in the pass that adds its bias."""
+        if not self._fused(h):
+            return self.trunk(h).permute(0, 2, 3, 1).contiguous()
+        layers = list(self.trunk)
+        for conv, act in zip(layers[:-1:2], layers[1::2]):
+            y, b = _unbiased(conv, h)
+            relu = type(act) is nn.ReLU
+            h = band_epilogue([y], [b], relu=relu, out=y)
+            if not relu:
+                h = act(h)
+        y, b = _unbiased(layers[-1], h)
+        return band_epilogue([y], [b], nhwc=True)
 
     def get_params(self, y_cond: torch.Tensor, halo=None) -> torch.Tensor:
         """Conditioning bands ``[B, H, W, c*(band+1)]`` -> GMM parameter map
         ``[B, H, W, Co]`` (contiguous).  ``halo``: for a rank's block of
         rows, the exchange that gives it its neighbours' boundary rows
         (``parallel.halo.halo_rows``); None for a whole image."""
-        return self._head(self._base(y_cond, halo))
+        return self._trunk(self._base(y_cond, halo, act=True))
 
     def get_params_batched(self, y_cond: torch.Tensor) -> torch.Tensor:
         """:meth:`get_params` of a batch of K whole images, with the
@@ -218,30 +265,23 @@ class Interpolator(nn.Module):
         sum it gets in a batch of K; at N > 1 cuDNN runs the trunk's last
         grouped conv (Ch -> Co) between ``genericTranspose`` kernels, at
         N = 1 the same conv kernels without them.  The unit sums keep
-        their order, ``(o0 + o1) + o2``.  Inference only (``out=`` takes
-        no gradient)."""
-        convs = self._unit_convs(y_cond)
-        first = next(convs).transpose(0, 1)
-        Ch, K, h, w = first.shape
-        base = first.new_empty(first.shape)
-        second = next(convs, None)
-        if second is None and type(self.act0) is nn.ReLU:
-            # ReLU is clamp_min: one pass writes it channel-major
-            torch.clamp_min(first, 0, out=base)
-            del first
-        else:
-            if second is None:
-                base.copy_(first)
-            else:
-                torch.add(first, second.transpose(0, 1), out=base)
-            # each unit's map is freed once it is added
-            del first, second
-            for unit in convs:
-                base.add_(unit.transpose(0, 1))
-                del unit
-            base = self.act0(base.view(1, Ch, K * h, w))
-        out = self.trunk(base.view(1, Ch, K * h, w))
-        return out.permute(0, 2, 3, 1).contiguous().view(K, h, w, -1)
+        their order, ``(o0 + o1) + o2``, summed with their biases (and a
+        ReLU) by the band epilogue.  The fused path only (:meth:`_fused`):
+        no gradient, NCHW convs."""
+        units = self._unit_inputs(y_cond)
+        conv, x = next(units)
+        if not self._fused(x):
+            raise ValueError("the batch-1 trunk takes NCHW convs and "
+                             "records no gradient")
+        maps, biases = zip(_unbiased(conv, x), *(_unbiased(*u) for u in units))
+        K, Ch, h, w = maps[0].shape
+        relu = type(self.act0) is nn.ReLU
+        base = maps[0].new_empty((Ch, K, h, w))
+        band_epilogue(maps, biases, relu=relu, out=base.transpose(0, 1))
+        del maps, x  # the unit maps, before the trunk's
+        base = base.view(1, Ch, K * h, w)
+        return self._trunk(base if relu else self.act0(base)).view(
+            K, h, w, -1)
 
     def band_base(self, y_cond: torch.Tensor, halo=None) -> torch.Tensor:
         """clrjnt0seqmd codec path: the pre-activation layer-0 map
@@ -332,6 +372,26 @@ class Interpolator(nn.Module):
         return gmm_self_information(y[..., 0:1], params[..., 0:M],
                                     params[..., M:2 * M],
                                     params[..., 2 * M:3 * M], M, logistic=lg)
+
+
+def _unbiased(conv: nn.Conv2d, x: torch.Tensor):
+    """-> (``conv(x)`` without its bias, the bias still to add, or None).
+    On the card PyTorch runs a float32 conv through cuDNN, where cuDNN is
+    on, and adds the bias after it, in a pass of its own, which the band
+    epilogue does instead, with the same rounding.  Elsewhere the conv
+    keeps its bias, as PyTorch takes it into the conv's own sums: in its
+    depthwise kernel on the card (groups = input channels > 1), which
+    starts each sum from the bias, in its GEMM conv where cuDNN is off,
+    and in the CPU's convs.  That the maps keep their bits rests on this
+    choice of PyTorch's backends; ``chip_smoke.py`` holds it, by the
+    flagship's and a K = 8 batch container's sha256."""
+    if (conv.bias is None or x.device.type != "cuda"
+            or x.dtype != torch.float32
+            or not torch.backends.cudnn.enabled
+            or 1 < conv.groups == conv.in_channels):
+        return conv(x), None
+    return F.conv2d(x, conv.weight, None, conv.stride, conv.padding,
+                    conv.dilation, conv.groups), conv.bias
 
 
 def _replicate(x: torch.Tensor, pad, m: int) -> torch.Tensor:
