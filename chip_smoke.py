@@ -58,6 +58,12 @@ Phases, each of which raises on failure:
      plus 310x598 for clrjnt 1 and 0+seqmd; the trained weights for
      clrjnt 2 logistic, init_params(cfg, seed=0) for the rest (so only
      losslessness and the kernels mean anything there, not the bits);
+     clrjnt 1 normal also: Kernel 1's launches by mixture terms in each
+     direction (15 at ten, Y's 2M, and 30 at five), every (scale, band)
+     map of a K = 8 batch and of one image bit-equal to the benchmark's
+     reference (``llbench/reference/clrjnt1.py``: layer 0 at groups 2,
+     where the codec holds its kernel ungrouped), and the K = 8 batch
+     container lossless;
   9. the serving path, each part driven with the launch counts set to 0
      just before it and read just after: (a) Kernels 2 and 3 batched over
      K = 8 images synthetic_image(512, 768, seed=42+k), one launch / one
@@ -185,6 +191,7 @@ the last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import hashlib
 import json
 import math
@@ -931,6 +938,66 @@ def table_path(codec, img):
           f"words -> decoded symbols identical")
 
 
+def clrjnt1_checks(codec, img):
+    """clr_joint_mode 1 on the codec's normal path: Kernel 1's launches by
+    mixture terms in each direction of a 512x768 round trip (15 at ten
+    terms, Y's 2M, and 30 at five, Co's and Cg's), every (scale, band)
+    map of a K = 8 batch (the trunk at batch 1, layer 0 held ungrouped)
+    and of one image bit-equal to the benchmark's reference (layer 0 at
+    groups 2, the trunk at batch K), and the K = 8 batch container
+    decoded lossless."""
+    from llbench.reference import clrjnt1, model as ref_model
+    from llbench.reference.codec import float32_math
+    by = cdf.gmm_cdf_from_pmap.launches_by_mixtures
+    for direction in ("compress", "decompress"):
+        by.clear()
+        if direction == "compress":
+            streams = codec.compress(img)
+        else:
+            check(np.array_equal(codec.decompress(streams)[0], img),
+                  "clrjnt1: decoded image != input")
+        torch.cuda.synchronize()
+        check(dict(by) == {10: 15, 5: 30}, f"clrjnt1 {direction}: Kernel 1 "
+              f"launches by mixture terms {dict(by)}, expected "
+              "{10: 15, 5: 30}")
+    print(f"clrjnt1 Kernel 1 launches by terms a direction: {dict(by)}")
+    cfg = codec.cfg
+    keys = {f.name: getattr(codec.cfg, f.name)
+            for f in dataclasses.fields(cfg)}
+    ref = clrjnt1.build(clrjnt1.Clrjnt1Config(keys), ref_model.from_flax(
+        init_params(cfg, 0)), "cuda")
+    imgs = [synthetic_image(512, 768, seed=42 + k) for k in range(BATCH_K)]
+    x = torch.from_numpy(np.stack(imgs)).cuda()
+    y = codec._front(x)
+    c = cfg.cond_channels
+    equal = 0
+    with torch.inference_mode():
+        for scl in range(cfg.num_scales):
+            for b in range(3):
+                yc = y[scl][..., :c * (b + 1)].contiguous()
+                with exact_math():
+                    got = codec.model.band_params_batched(yc, scl, b)
+                    one = codec.model.band_params(yc[:1], scl, b)
+                with float32_math():
+                    want = ref.band(scl, b).params(yc)
+                    want1 = ref.band(scl, b).params(yc[:1])
+                check(torch.equal(got, want) and torch.equal(one, want1),
+                      f"clrjnt1 scale {scl} band {b}: maps differ from the "
+                      f"reference's by {float((got - want).abs().max())}, "
+                      f"{float((one - want1).abs().max())} (K = 8, 1)")
+                equal += 2
+    t0 = time.perf_counter()
+    batch = codec.compress_batch(imgs)
+    outs = codec.decompress_batch(batch)
+    torch.cuda.synchronize()
+    check(all(np.array_equal(o, im) for o, im in zip(outs, imgs)),
+          "clrjnt1: K = 8 batch container decoded != input")
+    print(f"clrjnt1: {equal} maps bit-equal to the reference's (15 (scale, "
+          f"band) at K = 8 and 1); K = 8 batch container of "
+          f"{Codec.num_bytes(batch)} bytes lossless, round trip "
+          f"{1e3 * (time.perf_counter() - t0):.1f} ms")
+
+
 def variants_phase(img, odd):
     """One round trip per coded configuration; returns the logistic
     branch's launches over the logistic configurations' counted runs and
@@ -955,6 +1022,8 @@ def variants_phase(img, odd):
             logistic_launches += k1.logistic_launches
             if label == "clrjnt2 logistic" and im is img:
                 per_trip = k1.logistic_launches
+        if label == "clrjnt1 normal":
+            clrjnt1_checks(codec, img)
         del codec
         torch.cuda.empty_cache()
     print(f"variants phase: {len(VARIANTS)} configurations in "

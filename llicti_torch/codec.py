@@ -81,7 +81,7 @@ from .coder import range_coder
 from .coder.rans import (RANS_L, pack_stream_packed, rans_decode,
                          rans_encode_chain, unpack_stream)
 from .config import ModelConfig
-from .models.interpolator import seq_colours
+from .models.interpolator import Interpolator, seq_colours
 from .ops.cdf import gmm_cdf_from_pmap
 from .ops.color import (rgb_int_to_ycocg_r_int, rgb_int_to_ycocg_r_int_np,
                         ycocg_r_int_to_rgb_int)
@@ -581,10 +581,11 @@ class Codec:
         self.compiled_shapes: set = set()
         self.logistic = cfg.distribution == "logistic"
         self.model = params_from_flax(params, cfg).to(self.device)
-        # GDN1's effective beta and gamma are constants of every pass:
-        # computed once here, not in each call of a band net
+        # GDN1's effective beta and gamma, and a grouped layer 0's
+        # ungrouped kernel, are constants of every pass: computed once
+        # here, not in each call of a band net
         for mod in self.model.modules():
-            if isinstance(mod, GDN1):
+            if isinstance(mod, (GDN1, Interpolator)):
                 mod.hold()
         self._pts: Dict[Tuple[int, int], torch.Tensor] = {}
         self._shift = torch.tensor(_SHIFT, dtype=torch.int32).to(self.device)

@@ -22,7 +22,12 @@ Where no gradient is recorded and the convs run NCHW (every codec pass),
 layer 0's unit sum, a ReLU, the parameter map's NHWC layout and, on the
 card, each conv's bias are done in one pass after the conv
 (:func:`band_epilogue`), with the additions PyTorch's own passes make, in
-their order.
+their order.  A codec holds (:meth:`Interpolator.hold`) the kernel of a
+layer-0 conv of 1 < groups < input channels (clr_joint_mode 1's groups 2
+over four channels) as one ungrouped conv's, its groups' kernels on the
+diagonal and zeros elsewhere: on the card cuDNN runs such a grouped conv
+as a conv a group between ``genericTranspose`` kernels, some 18x the time
+of the ungrouped conv, whose sums gain only exact zero products.
 The conditioning and predicted bands are data: no gradient flows into
 them, only into the parameters.
 """
@@ -133,6 +138,18 @@ class Interpolator(nn.Module):
             trunk.append(_activation(cfg.activfun, Ch))
         trunk.append(nn.Conv2d(Ch, Co, 1, groups=grps))
         self.trunk = nn.Sequential(*trunk)
+
+    def hold(self) -> None:
+        """Hold each layer-0 conv of 1 < groups < input channels as one
+        ungrouped conv (:func:`block_diagonal`), for the codec's passes
+        (:func:`_unbiased` on the card); its weights are not trained
+        after this.  A depthwise or ungrouped layer 0 holds nothing."""
+        for spec in self._specs.values():
+            for _, name, _, _ in spec:
+                conv = getattr(self, name)
+                if 1 < conv.groups < conv.in_channels:
+                    with torch.no_grad():
+                        conv.held_dense = block_diagonal(conv)
 
     def _band_specs(self, y_cond: torch.Tensor):
         """The layer-0 specs of the band ``y_cond`` conditions."""
@@ -374,6 +391,21 @@ class Interpolator(nn.Module):
                                     params[..., 2 * M:3 * M], M, logistic=lg)
 
 
+def block_diagonal(conv: nn.Conv2d) -> torch.Tensor:
+    """The kernel of a grouped ``conv`` as an ungrouped conv's ``[out, in,
+    kh, kw]``: group g's kernel in output rows and input columns g, zeros
+    elsewhere.  Each output sums the grouped conv's products and exact
+    zero products; on the card cuDNN sums them in the grouped conv's
+    order, so the map keeps its bits (``chip_smoke.py`` holds it against
+    the benchmark's reference, whose layer 0 is the grouped conv)."""
+    w, G = conv.weight, conv.groups
+    o, i = w.shape[0] // G, w.shape[1]
+    out = w.new_zeros((w.shape[0], i * G) + tuple(w.shape[2:]))
+    for g in range(G):
+        out[g * o:(g + 1) * o, g * i:(g + 1) * i] = w[g * o:(g + 1) * o]
+    return out
+
+
 def _unbiased(conv: nn.Conv2d, x: torch.Tensor):
     """-> (``conv(x)`` without its bias, the bias still to add, or None).
     On the card PyTorch runs a float32 conv through cuDNN, where cuDNN is
@@ -384,14 +416,18 @@ def _unbiased(conv: nn.Conv2d, x: torch.Tensor):
     starts each sum from the bias, in its GEMM conv where cuDNN is off,
     and in the CPU's convs.  That the maps keep their bits rests on this
     choice of PyTorch's backends; ``chip_smoke.py`` holds it, by the
-    flagship's and a K = 8 batch container's sha256."""
+    flagship's and a K = 8 batch container's sha256.  A conv the codec
+    holds ungrouped (:meth:`Interpolator.hold`) runs so there."""
     if (conv.bias is None or x.device.type != "cuda"
             or x.dtype != torch.float32
             or not torch.backends.cudnn.enabled
             or 1 < conv.groups == conv.in_channels):
         return conv(x), None
-    return F.conv2d(x, conv.weight, None, conv.stride, conv.padding,
-                    conv.dilation, conv.groups), conv.bias
+    dense = getattr(conv, "held_dense", None)
+    weight, groups = ((conv.weight, conv.groups) if dense is None
+                      else (dense, 1))
+    return F.conv2d(x, weight, None, conv.stride, conv.padding,
+                    conv.dilation, groups), conv.bias
 
 
 def _replicate(x: torch.Tensor, pad, m: int) -> torch.Tensor:

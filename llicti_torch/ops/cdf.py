@@ -13,6 +13,7 @@ always share one of them, so each side's tables are identical.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Sequence, Tuple
 
@@ -160,11 +161,15 @@ def gmm_cdf_from_pmap(points: torch.Tensor, pmap: torch.Tensor,
     if n > 0:
         gmm_cdf_from_pmap.launches += 1
         gmm_cdf_from_pmap.logistic_launches += int(logistic)
+        gmm_cdf_from_pmap.launches_by_mixtures[M] += 1
     return cum, start, freq
 
 
 gmm_cdf_from_pmap.launches = 0            # every launch of Kernel 1
 gmm_cdf_from_pmap.logistic_launches = 0   # those of its logistic branch
+# launches by mixture terms M (clr_joint_mode 1 codes Y with 2M):
+# reset with ``.clear()``
+gmm_cdf_from_pmap.launches_by_mixtures = collections.Counter()
 
 
 def gmm_cdf_table_int32_plain(points, stdevs, means, weights):

@@ -12,7 +12,9 @@ unsharded one reads.
 
 :func:`halo_rows` is differentiable: its backward sends each halo row's
 gradient back to the rank that owns the row and adds it there (the
-replicate rows' into the image's first and last rows).
+replicate rows' into the image's first and last rows).  Each call is
+the span ``llicti.halo`` (its host time includes the collective's waits
+for the other ranks).
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from typing import Tuple
 
 import torch
 
+from ..tracing import span
 from .distributed import all_gather_rows, all_reduce_sum, rank, world_size
 
 
@@ -85,9 +88,10 @@ def halo_rows(x: torch.Tensor, top: int, bottom: int,
     rank of the group must call it with the same shapes."""
     if top < 0 or bottom < 0 or x.dim() != 4 or x.shape[1] < 1:
         raise ValueError("halo_rows takes [B, h >= 1, W, C] and rows >= 0")
-    if world_size(group) == 1:
-        h = x.shape[1]
-        rows = torch.arange(-top, h + bottom, device=x.device).clamp_(0,
-                                                                      h - 1)
-        return x[:, rows]
-    return _Halo.apply(x, top, bottom, group)
+    with span("llicti.halo"):
+        if world_size(group) == 1:
+            h = x.shape[1]
+            rows = torch.arange(-top, h + bottom,
+                                device=x.device).clamp_(0, h - 1)
+            return x[:, rows]
+        return _Halo.apply(x, top, bottom, group)

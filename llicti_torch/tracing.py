@@ -18,7 +18,9 @@ with clrjnt0seqmd, ``llicti.seq``: one colour's sequential convs and
 trunk, timed on the device; for a batch of K > 1 on the card,
 ``llicti.stack``: the band's interpolator with its trunk at batch 1;
 and, with activfun GDN1, ``llicti.gdn``: one application of GDN1, timed
-on the device, two a band net at conv_layers 3),
+on the device, two a band net at conv_layers 3;
+and, for a rank's block of rows, ``llicti.halo``: one exchange of the
+boundary rows its layer-0 convs read from the neighbouring ranks),
 ``llicti.kernel1``, ``llicti.kernel2``,
 ``llicti.kernel3``, ``llicti.fetch``, ``llicti.wait`` and
 ``llicti.pack``; those of the step ``llicti.forward``,
