@@ -85,7 +85,15 @@ Phases, each of which raises on failure:
      torch.profiler trace with no Memcpy HtoD/DtoH, then ms an image over
      30 back-to-back calls; (e) size_bucket=64 on four ragged sizes; (f)
      two_stage on 512x768 and 310x598, cross-decoded with the fused codec
-     both ways.  Wall time and peak memory of each part are printed;
+     both ways; (g) the decoder's staging block: widen_words against its
+     plain version on random rows, lengths and column ranges, the batch
+     container decoded 20 times after a warm-up (lossless, one widen
+     launch each, staging_counts reused >= 99 % and never waited), the
+     two-stage codec's split decodes (two widen launches), no
+     cudaHostAlloc in a profiler trace of a steady-state decode, the
+     widen's ms beside its bound and the staging's host ms beside the
+     unpack it replaced.  Wall time and peak memory of each part are
+     printed;
   10. the slice of the rate forward and the host backend, each part with
      the launch counts set to 0 just before it and read just after: (a) C2,
      the flagship container's num_bytes within max(0.1 %, 16 B) of the JAX
@@ -185,8 +193,10 @@ its K = 8 launch at N = 2048 as batch_*, at N = 20000 under
 "wide_batch_lanes", and the K = 8 batch containers' bytes, ms an image and
 launches by N under "batch_container_lanes"); band_epilogue's row holds
 phase 4b's cases (ms, bound_ms, passes_ms), its launches over the main
-path's round trip and a batch one's (batch_launches);
-the last line is {"ok": true, "device": {...}}.
+path's round trip and a batch one's (batch_launches); widen_words's
+holds phase 9 (g)'s (ms, plain_ms, bound_ms at the batch container's
+shape, the cases, staging_counts, the host staging's and the old
+unpack's ms); the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -1261,6 +1271,140 @@ def batch1_maps(codec, imgs) -> int:
     return 3 * len(y_list)
 
 
+def widen_cases(dev) -> int:
+    """widen_words against its plain version on random int16 rows and
+    lengths (a full row and an empty one in each), over whole rows, a head
+    and a tail of columns; -> the number of cases."""
+    gen = torch.Generator().manual_seed(27)
+    cases = 0
+    for K, W in ((1, 1), (1, 430_001), (8, 431_017), (3, 70_001),
+                 (254, 5_000)):
+        src = torch.randint(-32768, 32768, (K, W), dtype=torch.int16,
+                            generator=gen)
+        lengths = torch.randint(0, W + 1, (K,), generator=gen)
+        lengths[0] = W
+        lengths[-1] = 0 if K > 1 else W
+        for cols in ((0, W), (0, W // 3), (W // 3, W)):
+            want = rans.widen_words_plain(
+                src, lengths, torch.full((K, W), -7, dtype=torch.int32),
+                *cols)
+            got = rans.widen_words(
+                src.to(dev), lengths.to(dev),
+                torch.full((K, W), -7, dtype=torch.int32, device=dev), *cols)
+            check(torch.equal(got.cpu(), want),
+                  f"widen_words K={K} W={W} columns {cols} != its plain "
+                  "version")
+            cases += 1
+    return cases
+
+
+def host_allocs(fns):
+    """Names of the cudaHostAlloc calls a torch.profiler trace of one call
+    of each of ``fns`` records, in the steady state: after two calls of
+    each, which fill PyTorch's cache of pinned blocks as a caller that
+    holds one result while it asks for the next does."""
+    from torch.profiler import ProfilerActivity, profile
+    for fn in fns:
+        kept = fn()
+        kept = fn()  # noqa: F841
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for fn in fns:
+            fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if "cudaHostAlloc" in e.name]
+
+
+def staging_phase(codec, split, imgs, blob: bytes, single, odd) -> dict:
+    """The decoder's staging block and the widen kernel (phase 9 (g)):
+    widen_words against its plain version; the K = 8 batch container
+    ``blob`` decoded 20 times in a closed loop after a warm-up, lossless,
+    one widen launch each, ``staging_counts`` reused in >= 99 % with no
+    wait; the two-stage codec's split decodes of ``single`` (512x768) and
+    ``odd`` lossless with two widen launches each; no cudaHostAlloc in a
+    steady-state decode of either; the widen timed at the batch's shape
+    beside its bound and its plain version, the staging's host ms beside
+    the per-stream unpack it replaced; back-to-back decompress_dispatch
+    calls' waits printed.  -> the widen's figures for the kernels line."""
+    t0 = time.perf_counter()
+    dev = codec.device
+    cases = widen_cases(dev)
+    batch = Codec.deserialize(blob)
+    codec.decompress_batch(batch)  # warm-up
+    codec.staging_counts.clear()
+    rans.widen_words.launches = 0
+    for _ in range(20):
+        outs = codec.decompress_batch(batch)
+        check(all(np.array_equal(o, im) for o, im in zip(outs, imgs)),
+              "a staged batch decode is lossy")
+    counts = dict(codec.staging_counts)
+    share = counts.get("reused", 0) / max(
+        1, counts.get("reused", 0) + counts.get("grown", 0))
+    check(share >= 0.99 and not counts.get("waited"),
+          f"20 batch decodes: staging_counts {counts}")
+    check(rans.widen_words.launches == 20,
+          f"{rans.widen_words.launches} widen launches in 20 batch decodes")
+    for im, streams in ((imgs[0], single), (odd, split.compress(odd))):
+        split.decompress(streams)  # warm-up
+        rans.widen_words.launches = 0
+        out = split.decompress(streams, xorg=im)
+        check(np.array_equal(out[0], im) and split.last_ycocg_err == 0,
+              f"two-stage split decode of {im.shape[:2]} lossy")
+        check(rans.widen_words.launches == 2,
+              f"{rans.widen_words.launches} widen launches in a split "
+              "decode (head and tail: 2)")
+    allocs = host_allocs([lambda: codec.decompress_batch(batch),
+                          lambda: split.decompress(single)])
+    check(not allocs, f"a steady-state decode called {allocs}")
+
+    # the widen at the batch's shape; the staging against the unpack
+    (staged,) = codec._decode_stage([[g[0] for g in batch[1:]]])
+    K, W = staged.words.shape
+    lengths = staged.small[K * codec.N:].to(dev)
+    src = staged.words.to(dev)
+    out = torch.empty((K, W), dtype=torch.int32, device=dev)
+    ms = cuda_ms(lambda: rans.widen_words(src, lengths, out), 50)
+    plain_ms = cuda_ms(lambda: rans.widen_words_plain(src, lengths, out, 0,
+                                                      W), 20)
+    bound_ms, by = bound(2 * int(lengths.sum()) + 4 * K * W, 0)
+    blobs = [g[0] for g in batch[1:]]
+
+    def unpack_rows():  # what the decoder did before the staging block
+        unpacked = [rans.unpack_stream(b, codec.N) for b in blobs]
+        words = np.zeros((K, max(w.size for _, w in unpacked)), np.int32)
+        for k, (_, w) in enumerate(unpacked):
+            words[k, :w.size] = w
+        codec._host(words)
+        return codec._host(np.stack([s for s, _ in unpacked])
+                           .astype(np.int64))
+
+    unpack_ms = median_ms(unpack_rows, 11)
+    stage_ms = median_ms(lambda: codec._decode_stage([blobs]), 11)
+    # decompress_dispatch does not synchronise: a stage may wait for the
+    # copy of the one before
+    codec.staging_counts.clear()
+    rgbs = [codec.decompress_dispatch(single)[0] for _ in range(4)]
+    torch.cuda.synchronize()
+    check(all(np.array_equal(r[0].cpu().numpy(), imgs[0]) for r in rgbs),
+          "queued decompress_dispatch calls are lossy")
+    dispatch = dict(codec.staging_counts)
+    print(f"staging: widen_words bit-equal to its plain version in {cases} "
+          f"cases; 20 K={K} batch decodes lossless, staging_counts {counts}"
+          f" (reuse share {100 * share:.2f} %), one widen launch each; "
+          f"two-stage split decodes of 512x768 and 310x598 lossless, two "
+          f"widen launches each; no cudaHostAlloc in a steady-state decode;"
+          f" widen at [{K}, {W}] {ms:.4f} ms (bound {bound_ms:.4f} by {by},"
+          f" plain {plain_ms:.4f}); host staging of the {K} streams "
+          f"{stage_ms:.3f} ms against {unpack_ms:.3f} ms for the "
+          f"per-stream unpack, zero-padded int32 rows and pinned copies; "
+          f"4 queued decompress_dispatch calls: staging_counts {dispatch}; "
+          f"phase {time.perf_counter() - t0:.2f} s")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": by, "cases": cases, "staging_counts": counts,
+            "stage_ms": stage_ms, "unpack_ms": unpack_ms}
+
+
 def serving_phase(codec, params, kres, counters):
     """The serving path: batched kernels, the batch container, pipelined
     calls, resident closures, size_bucket and two_stage, each driven with
@@ -1429,7 +1573,8 @@ def serving_phase(codec, params, kres, counters):
           f"median of 5: two-stage {split_ms[2]:.2f} ms, fused "
           f"{fused_ms[2]:.2f} ms; phase {time.perf_counter() - t0:.2f} s")
     print(f"serving launches by path: {json.dumps(paths)}")
-    return dec_row, enc_row, paths, trip
+    widen = staging_phase(codec, split, imgs, blob, single, odd)
+    return dec_row, enc_row, paths, trip, widen
 
 
 # the flagship container's sha256 since PR 2 (its first and last hex
@@ -2663,6 +2808,10 @@ def build_phase():
     check(all(r["stack"] == 0 and r["spill_stores"] == 0
               and r["spill_loads"] == 0 for r in wide),
           "the wide decode kernel has a stack frame or spills")
+    widen = [r for r in table if "widen_words_kernel" in r["kernel"]]
+    check(len(widen) == 1 and widen[0]["stack"] == 0
+          and widen[0]["spill_stores"] == 0,
+          f"the widen kernel: {widen} (one, no stack frame, no spills)")
     for M in (5, 10):
         for logistic in (False, True):
             blocks, threads = cdf.pmap_occupancy(M, logistic)
@@ -2755,8 +2904,8 @@ def main() -> None:
     launches["gmm_cdf_from_pmap_logistic"] = logistic
     check(logistic > 0, "Kernel 1's logistic branch was not launched")
     t0 = time.perf_counter()
-    dec_row, enc_row, paths, trip = serving_phase(codec, params, kres,
-                                                  counters)
+    dec_row, enc_row, paths, trip, widen = serving_phase(codec, params,
+                                                         kres, counters)
     print(f"serving phase: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     slice_phase(codec, params, counters, {
@@ -2857,6 +3006,11 @@ def main() -> None:
         "batch_launches": epilogue["batch_launches"], "cases": {
             label: {"ms": ms, "bound_ms": bound_ms, "passes_ms": passes_ms}
             for label, ms, bound_ms, passes_ms in epilogue["cases"]}})
+    # the widen replaces no TPU kernel: phase 9 (g)'s figures, at the K = 8
+    # batch container's shape
+    kernels.append(dict(name="widen_words", route="cuda",
+                        source="llicti_torch/csrc/rans_widen.cu",
+                        replaces=None, **widen))
     print(json.dumps({"kernels": kernels}))
     print(ok_line())
 

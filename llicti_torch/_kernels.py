@@ -60,6 +60,8 @@ _SIGNATURES = {
                                  _P, _I, _I, _P],
     # steps, N, K, scratch int32 words (out)
     "llicti_rans_encode_scratch": [_L, _I, _I, _P],
+    # src, src_stride, lengths, dst, dst_stride, col0, col1, K, stream
+    "llicti_widen_words": [_P, _L, _P, _P, _L, _L, _L, _I, _P],
     # x0, x1, x2, b0, b1, b2, out, strides (host), U, N, C, P, relu, nhwc,
     # stream
     "llicti_band_epilogue": [_P] * 8 + [_I, _L, _L, _L, _I, _I, _P],

@@ -69,6 +69,7 @@ to.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
 from concurrent.futures import ThreadPoolExecutor
@@ -79,7 +80,7 @@ import torch
 
 from .coder import range_coder
 from .coder.rans import (RANS_L, pack_stream_packed, rans_decode,
-                         rans_encode_chain, unpack_stream)
+                         rans_encode_chain, stream_words, widen_words)
 from .config import ModelConfig
 from .models.interpolator import Interpolator, seq_colours
 from .ops.cdf import gmm_cdf_from_pmap
@@ -473,6 +474,15 @@ class _Staged(NamedTuple):
     ranges: List[Tuple[int, int]]
 
 
+class _Words(NamedTuple):
+    """A container's rANS streams staged on the host for its decode, in
+    regions of the codec's staging blocks."""
+    words: torch.Tensor   # int16 [K, W]: stream k's 16-bit words in row k,
+                          # unwritten past its length
+    small: torch.Tensor   # int64 [K * N + K]: the lane states [K, N], then
+                          # each stream's length in words
+
+
 class _DecodeInputs(NamedTuple):
     """A container's buffers on the device, ready to decode."""
     hdr: Header
@@ -524,6 +534,11 @@ class Codec:
     (stream bits and the ideal bits of the coder's own tables), and
     ``last_slice_bits`` / ``last_ideal_bits`` their elementwise sums; the
     host backend keeps stream bits only (ideal bits None).
+    ``staging_counts`` counts how each device-backend decode found the
+    decoder's staging block (its rANS words' host buffer, reused from
+    decode to decode): "reused", "grown" (allocated anew, larger) and
+    "waited" (a copy out of it was still pending, as after an unsynchronised
+    :meth:`decompress_dispatch`).
     """
 
     serialize = staticmethod(serialize)
@@ -599,6 +614,11 @@ class Codec:
         # a row-sharded codec's (parallel.codec_sp) exchange of its layer-0
         # convs' boundary rows with the neighbouring ranks
         self._halo = None
+        # the decoder's staging blocks (words; states and lengths), pinned
+        # on a card, and the events after the copies out of them
+        self._blocks: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self._block_copies: List[torch.cuda.Event] = []
+        self.staging_counts: collections.Counter = collections.Counter()
 
     # ---- host <-> card ---------------------------------------------------
     def _host(self, arr: np.ndarray) -> torch.Tensor:
@@ -1056,16 +1076,63 @@ class Codec:
         return self._decode_scales(hdr, self._upload(hdr.raw), scale_code)
 
     # ---- decode ----------------------------------------------------------
-    def _decode_stage(self, blobs: Sequence[bytes]):
-        """Unpack K streams on the host: (words int32 [K, W], each row
-        zero-padded to the longest stream, lane states int64 [K, N])."""
+    def _staging(self, n_words: int, n_small: int):
+        """The staging blocks, of at least ``n_words`` int16 and ``n_small``
+        int64: the codec's own once every copy out of them has finished,
+        else new ones, twice as large or as asked (pinned on a card; the
+        old ones stay allocated until their copies have finished)."""
+        blocks = self._blocks
+        if (blocks is not None and blocks[0].numel() >= n_words
+                and blocks[1].numel() >= n_small):
+            pending = [e for e in self._block_copies if not e.query()]
+            if pending:
+                self.staging_counts["waited"] += 1
+                for e in pending:
+                    e.synchronize()
+            self.staging_counts["reused"] += 1
+        else:
+            have = (0, 0) if blocks is None else (blocks[0].numel(),
+                                                  blocks[1].numel())
+            pin = self.device.type == "cuda"
+            blocks = self._blocks = (
+                torch.empty(max(n_words, 2 * have[0]), dtype=torch.int16,
+                            pin_memory=pin),
+                torch.empty(max(n_small, 2 * have[1]), dtype=torch.int64,
+                            pin_memory=pin))
+            self.staging_counts["grown"] += 1
+        self._block_copies = []
+        return blocks
+
+    def _decode_stage(self, containers: Sequence[Sequence[bytes]]
+                      ) -> List[_Words]:
+        """Stage the rANS streams of one or more containers (each a list of
+        K blobs) on the host, each container in its own region of the
+        staging blocks: every blob's words written once into row k of a
+        ``[K, W]`` view (W the container's longest stream), its lane states
+        and length beside them.  Every blob is checked before anything is
+        written."""
         with span("llicti.unpack"):
-            unpacked = [unpack_stream(b, self.N) for b in blobs]
-            words = np.zeros((len(blobs), max(w.size for _, w in unpacked)),
-                             np.int32)
-            for k, (_, w) in enumerate(unpacked):
-                words[k, :w.size] = w
-            return words, np.stack([s for s, _ in unpacked]).astype(np.int64)
+            N = self.N
+            lengths = [[stream_words(b, N) for b in blobs]
+                       for blobs in containers]
+            widths = [max(ls) for ls in lengths]
+            words, small = self._staging(
+                sum(len(ls) * w for ls, w in zip(lengths, widths)),
+                sum(len(ls) * (N + 1) for ls in lengths))
+            out, wo, so = [], 0, 0
+            for blobs, ls, W in zip(containers, lengths, widths):
+                K = len(blobs)
+                rows = words[wo:wo + K * W].view(K, W)
+                meta = small[so:so + K * (N + 1)]
+                wo, so = wo + K * W, so + K * (N + 1)
+                rows_np, meta_np = rows.numpy().view(np.uint16), meta.numpy()
+                for k, (b, n) in enumerate(zip(blobs, ls)):
+                    rows_np[k, :n] = np.frombuffer(b, np.uint16, n, 4 * N)
+                    meta_np[k * N:(k + 1) * N] = np.frombuffer(b, np.uint32,
+                                                               N)
+                meta_np[K * N:] = ls
+                out.append(_Words(rows, meta))
+            return out
 
     def _head_width(self, hdr: Header, W: int) -> int:
         """Words of each row that scales S-1..1 read: a single container
@@ -1077,34 +1144,61 @@ class Codec:
         return min(W, words_cap(self.N, self.cfg.num_scales, lh, lw,
                                 hdr.pad_flags, min_scl=1))
 
-    def _decode_upload(self, hdr: Header, words: np.ndarray,
-                       states: np.ndarray, split: bool) -> _DecodeInputs:
-        """The decode's buffers on the card, copied asynchronously from
-        pinned memory.  Two-stage: the coarse scales read the head columns
-        of ``words``; with ``split`` on a card, the columns after the head
-        copy on a second stream, which scale 0 waits on."""
+    def _copy_in(self, host: torch.Tensor) -> torch.Tensor:
+        """A new device tensor holding ``host``, copied asynchronously (a
+        copy on the CPU too: the staging blocks are written again)."""
+        return torch.empty(host.shape, dtype=host.dtype,
+                           device=self.device).copy_(host, non_blocking=True)
+
+    def _decode_upload(self, hdr: Header, staged: _Words,
+                       split: bool) -> _DecodeInputs:
+        """The decode's buffers on the card: the staged 16-bit rows and the
+        lane states copied asynchronously out of the staging blocks, the
+        rows widened there to the int32 rows Kernel 2 reads
+        (:func:`widen_words`, zeros past each stream's end).  Two-stage:
+        the coarse scales read the head columns; with ``split`` on a card,
+        the columns after the head copy and widen on a second stream,
+        which scale 0 waits on.  An event after the last copy out of the
+        blocks on each stream tells the next stage when it may write
+        them."""
         with span("llicti.upload"):
-            raw, st = self._to_device(hdr.raw), self._to_device(states)
-            if not self.two_stage:
-                return _DecodeInputs(hdr, raw, self._to_device(words), st,
-                                     None, None)
-            K, W = words.shape
-            hw = self._head_width(hdr, W)
-            ready = None
-            if split and self._side is not None:
-                dev = torch.empty((K, W), dtype=torch.int32,
+            raw = self._to_device(hdr.raw)
+            K, W = staged.words.shape
+            small = self._copy_in(staged.small)
+            states = small[:K * self.N].view(K, self.N)
+            lengths = small[K * self.N:]
+            hw = self._head_width(hdr, W) if self.two_stage else W
+            side = self._side if split else None
+            cut = hw if side is not None else W
+            words16 = torch.empty((K, W), dtype=torch.int16,
                                   device=self.device)
-                dev[:, :hw].copy_(self._host(words[:, :hw]),
-                                  non_blocking=True)
-                self._side.wait_stream(
-                    torch.cuda.current_stream(self.device))
-                with torch.cuda.stream(self._side):
-                    dev[:, hw:].copy_(self._host(words[:, hw:]),
-                                      non_blocking=True)
-                    ready = self._side.record_event()
-            else:
-                dev = self._to_device(words)
-            return _DecodeInputs(hdr, raw, dev, st, dev[:, :hw], ready)
+            dev = torch.empty((K, W), dtype=torch.int32, device=self.device)
+            words16[:, :cut].copy_(staged.words[:, :cut], non_blocking=True)
+            self._copied()
+            widen_words(words16, lengths, dev, 0, cut)
+            ready = None
+            if side is not None:
+                side.wait_stream(torch.cuda.current_stream(self.device))
+                with torch.cuda.stream(side):
+                    words16[:, cut:].copy_(staged.words[:, cut:],
+                                           non_blocking=True)
+                    self._copied()
+                    widen_words(words16, lengths, dev, cut, W)
+                    ready = side.record_event()
+                # allocated on the current stream, read on the side one
+                words16.record_stream(side)
+                small.record_stream(side)
+            return _DecodeInputs(hdr, raw, dev, states,
+                                 dev[:, :hw] if self.two_stage else None,
+                                 ready)
+
+    def _copied(self) -> None:
+        """Mark the copies out of the staging blocks queued so far on the
+        current stream: the next stage waits for them before it writes the
+        blocks again."""
+        if self.device.type == "cuda":
+            self._block_copies.append(
+                torch.cuda.current_stream(self.device).record_event())
 
     def _decode_scales(self, hdr: Header, raw: torch.Tensor, scale_code):
         """The scale loop of every decoder: per scale, coarse to fine, the
@@ -1175,9 +1269,9 @@ class Codec:
         hdr = parse_container(streams, self.cfg.dwtlevels)
         if host_coded(streams):
             return self._decompress_host(hdr, streams) + (hdr,)
-        words, states = self._decode_stage([streams[1][0]])
+        staged, = self._decode_stage([[streams[1][0]]])
         ycocg, rgb = self._decode_queue(
-            self._decode_upload(hdr, words, states, split=True))
+            self._decode_upload(hdr, staged, split=True))
         return ycocg, rgb, hdr
 
     @_pass("llicti.decompress")
@@ -1229,9 +1323,9 @@ class Codec:
         hdrs = [parse_container(s, self.cfg.dwtlevels) for s in streams_list]
         if any(host_coded(s) for s in streams_list):
             return [self.decompress(s) for s in streams_list]
-        staged = [self._decode_stage([s[1][0]]) for s in streams_list]
-        inputs = [self._decode_upload(h, w, st, split=True)
-                  for h, (w, st) in zip(hdrs, staged)]
+        staged = self._decode_stage([[s[1][0]] for s in streams_list])
+        inputs = [self._decode_upload(h, w, split=True)
+                  for h, w in zip(hdrs, staged)]
         outs = self._fetch([self._decode_queue(d)[1] for d in inputs])
         return [o[:, :h.origs[0][0], :h.origs[0][1]]
                 for o, h in zip(outs, hdrs)]
@@ -1239,8 +1333,8 @@ class Codec:
     def _resident(self, hdr: Header, blobs: Sequence[bytes]):
         """Stage a container on the card and return the closure that
         decodes it: -> RGB uint8 [K, H, W, 3] at the padded size."""
-        words, states = self._decode_stage(blobs)
-        d = self._decode_upload(hdr, words, states, split=False)
+        staged, = self._decode_stage([blobs])
+        d = self._decode_upload(hdr, staged, split=False)
         self._pts3([clr_range(clr, hdr.minmax) for clr in range(3)])
         self._settle()
 
@@ -1281,8 +1375,8 @@ class Codec:
         cropped to its original size; each slice of the K images is one
         decode launch."""
         hdr = parse_batch_container(streams, self.cfg.dwtlevels)
-        words, states = self._decode_stage([g[0] for g in streams[1:]])
+        staged, = self._decode_stage([[g[0] for g in streams[1:]]])
         _, rgb = self._decode_queue(
-            self._decode_upload(hdr, words, states, split=False))
+            self._decode_upload(hdr, staged, split=False))
         out = self._fetch([rgb])[0]
         return [out[k, :oh, :ow] for k, (oh, ow) in enumerate(hdr.origs)]

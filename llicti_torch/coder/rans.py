@@ -23,11 +23,15 @@ in Python with int64 tensors masked to 32 bits (torch's uint32 has too
 few ops).  All update the carried state tensors in place: ``states``
 int64 ``[N]`` (``[K, N]``) holding uint32 values, ``offset`` / ``cursor``
 int32 ``[1]`` (``[K]``).
+
+:func:`widen_words` turns the decoder's 16-bit words, copied to the card
+as a container stores them, into the int32 rows :func:`rans_decode`
+reads (one launch of ``csrc/rans_widen.cu``).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -325,12 +329,75 @@ def pack_stream_packed(packed_rev: np.ndarray,
                 np.asarray(packed_rev, np.uint16)[::-1]).tobytes())
 
 
-def unpack_stream(data: bytes,
-                  num_lanes: int) -> Tuple[np.ndarray, np.ndarray]:
-    """-> (states uint32 [N], words int32 [W])."""
+def stream_words(data: bytes, num_lanes: int) -> int:
+    """The number of 16-bit words in a rANS blob of ``num_lanes`` lane
+    states; ValueError on a blob of another size."""
     if len(data) < 4 * num_lanes or (len(data) - 4 * num_lanes) % 2:
         raise ValueError(f"rANS blob of {len(data)} bytes does not fit "
                          f"{num_lanes} lanes")
+    return (len(data) - 4 * num_lanes) // 2
+
+
+def unpack_stream(data: bytes,
+                  num_lanes: int) -> Tuple[np.ndarray, np.ndarray]:
+    """-> (states uint32 [N], words int32 [W])."""
+    stream_words(data, num_lanes)
     states = np.frombuffer(data[: 4 * num_lanes], np.uint32).copy()
     words = np.frombuffer(data[4 * num_lanes:], np.uint16).astype(np.int32)
     return states, words
+
+
+# ---- the decode's words on the card ----------------------------------------
+
+def widen_words_plain(src, lengths, out, col0: int, col1: int
+                      ) -> torch.Tensor:
+    """Plain PyTorch version of :func:`widen_words`."""
+    cols = torch.arange(col0, col1, device=src.device)
+    vals = src[:, col0:col1].to(torch.int32) & 0xFFFF
+    out[:, col0:col1] = torch.where(cols < lengths[:, None], vals, 0)
+    return out
+
+
+def widen_words(src: torch.Tensor, lengths: torch.Tensor, out: torch.Tensor,
+                col0: int = 0, col1: Optional[int] = None) -> torch.Tensor:
+    """Widen K streams' 16-bit words into the int32 rows that
+    :func:`rans_decode` reads: ``out[k, c]`` is ``src[k, c]`` read as
+    uint16 where ``c < lengths[k]`` and 0 past it, for the columns ``c`` in
+    ``[col0, col1)`` (all of them by default); the other columns of ``out``
+    are left as they are.
+
+    src int16 ``[K, W]`` (each word's 16 bits, as a container stores
+    them), lengths int64 ``[K]`` (each stream's words, at most W), out
+    int32 ``[K, W']`` with ``W' >= col1``; each row contiguous, all on one
+    device.  On CUDA tensors one launch of ``csrc/rans_widen.cu``, on CPU
+    tensors the plain version.  Returns ``out``.
+    """
+    if src.dtype != torch.int16 or src.dim() != 2:
+        raise ValueError("src must be int16 [K, W]")
+    K, W = src.shape
+    col1 = W if col1 is None else col1
+    if lengths.dtype != torch.int64 or lengths.shape != (K,):
+        raise ValueError(f"lengths must be int64 [{K}]")
+    if out.dtype != torch.int32 or out.dim() != 2 or out.shape[0] != K:
+        raise ValueError(f"out must be int32 [{K}, W']")
+    if not 0 <= col0 <= col1 <= min(W, out.shape[1]):
+        raise ValueError(f"columns [{col0}, {col1}) outside src's {W} or "
+                         f"out's {out.shape[1]}")
+    for name, t in (("src", src), ("out", out)):
+        if t.shape[1] > 1 and t.stride(1) != 1:
+            raise ValueError(f"{name}'s rows must be contiguous")
+    _check_tensors(src.device, lengths=lengths)
+    if out.device != src.device:
+        raise ValueError(f"out on {out.device}, expected {src.device}")
+    if src.device.type == "cpu":
+        return widen_words_plain(src, lengths, out, col0, col1)
+    err = _kernels.lib().llicti_widen_words(
+        src.data_ptr(), src.stride(0), lengths.data_ptr(), out.data_ptr(),
+        out.stride(0), col0, col1, K, _kernels.stream_ptr(src.device))
+    _kernels.check(err, "llicti_widen_words")
+    if K and col1 > col0:
+        widen_words.launches += 1
+    return out
+
+
+widen_words.launches = 0  # every launch of the widen

@@ -368,11 +368,8 @@ class ShardedCodec:
     def _decode_inputs(self, streams) -> _DecodeInputs:
         hdr = self._parse(streams)
         L, r = self.mesh.local, self.mesh.rank
-        words, states = self._codec._decode_stage(
-            streams[1][r * L:(r + 1) * L])
-        return _DecodeInputs(hdr, self._codec._upload(hdr.raw),
-                             self._codec._upload(words),
-                             self._codec._upload(states), None, None)
+        staged, = self._codec._decode_stage([streams[1][r * L:(r + 1) * L]])
+        return self._codec._decode_upload(hdr, staged, split=False)
 
     def _decode_queue(self, d: _DecodeInputs):
         """Queue a decode of this rank's shards: -> (YCoCg int32 of its

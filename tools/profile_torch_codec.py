@@ -18,10 +18,11 @@ min / median / max), Kernel 3's CUDA-event time and launches per encode
 run of each direction: wall time, device busy time (the union of the
 kernels' intervals), idle share, device time and launches per kernel
 group (:func:`group_of`: the benchmark's groups), and the three
-costliest kernels of "other".  Trees with the serving path (not older
-ones) also give, with ``--stages``, the median host ms of each stage of
-a single-image decode and encode (parse and unpack, upload; the
-encode's staging, which uploads the image and fetches its colour ranges;
+costliest kernels of "other".  Trees with the decoder's staging block
+(not older ones) also give, with ``--stages``, the median host ms of
+each stage of a single-image decode and encode (parse and stage,
+upload; the encode's staging, which uploads the image and fetches its
+colour ranges;
 queueing the device work, the final fetch with its wait for the card);
 with ``--batch K``, the times of ``compress_batch`` /
 ``decompress_batch`` of K images
@@ -214,9 +215,9 @@ def stages(codec, img, args) -> None:
         torch.cuda.synchronize()
         t = time.perf_counter()
         hdr = cmod.parse_container(streams, codec.cfg.dwtlevels)
-        words, states = codec._decode_stage([streams[1][0]])
-        t = lap("decode: parse and unpack", t)
-        d = codec._decode_upload(hdr, words, states, split=True)
+        staged, = codec._decode_stage([[streams[1][0]]])
+        t = lap("decode: parse and stage", t)
+        d = codec._decode_upload(hdr, staged, split=True)
         t = lap("decode: upload", t)
         _, rgb = codec._decode_queue(d)
         t = lap("decode: queue", t)
